@@ -1,0 +1,527 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+   sm_90a) and print the build time;
+2. hold every kernel against its plain PyTorch version on the card, at
+   int16/int32/int64, at engine shapes 2^10 .. 2^24 and at the edge shapes
+   (empty, non-pow-2, all-PAD, all-duplicate, PAD-valued keys, haystack of
+   length 1); results are integers, so any mismatch fails;
+3. materialize LUBM-L (``lubm_facts(n_univ=2000)``, about 1.08 M base
+   facts) with ``mode="tg"`` on the card and hold the result against the
+   same run on the CPU: per-predicate row sets, rounds, triggers, derived,
+   SORT_STATS and count_pulls; every kernel must have launched;
+4. ingest and materialize wide TC (1,000,000 chains, 14,000,000 facts
+   without the ``e~aux`` twin of ``e``) on the card, check the fact count
+   and hold the result against the same run on the CPU as in phase 3;
+5. time each kernel at the largest shape the main path gave it (CUDA
+   events around back-to-back calls, and the kernels' device time from a
+   torch.profiler trace), beside its plain version, a PyTorch library call
+   where one computes the same function, and its bound;
+6. profile warm re-runs of both materializations: wall time, the device's
+   busy time, and the kernels that took it.
+
+It prints a ``{"profile": [...]}`` line, a ``{"kernels": [...]}`` line,
+the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
+repository's ``src/`` beside it, and exits non-zero without a result
+otherwise.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+LUBM_UNIV = 2000
+TC_CHAINS = 1_000_000
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+DTYPES = (torch.int16, torch.int32, torch.int64)
+
+KERNELS = {
+    "bitonic_sort_tiles": ("src/repro_torch/kernels/csrc/bitonic_sort.cu",
+                           "src/repro/kernels/bitonic_sort.py:83"),
+    "bitonic_merge_pairs": ("src/repro_torch/kernels/csrc/bitonic_sort.cu",
+                            "src/repro/kernels/bitonic_sort.py:102"),
+    "unique_mask": ("src/repro_torch/kernels/csrc/unique_mask.cu",
+                    "src/repro/kernels/unique_mask.py:42"),
+    "probe_sorted": ("src/repro_torch/kernels/csrc/hash_probe.cu",
+                     "src/repro/kernels/hash_probe.py:45"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def mismatches(got, want) -> int:
+    if got.shape != want.shape:
+        return max(got.numel(), want.numel(), 1)
+    return int((got != want).sum().item())
+
+
+def max_abs_err(pairs) -> float:
+    err = 0.0
+    for got, want in pairs:
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
+
+
+def time_ms(fn, reps: int = 20, runs: int = 5) -> float:
+    """Time of one call: CUDA events around ``reps`` back-to-back calls,
+    divided by ``reps``; the median of ``runs`` such runs, after warm-up.
+    The wrapper's host work between launches is included where the card
+    finishes a call before the host has issued the next one."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def _device_events(prof):
+    """The trace's device-side entries (kernels, copies, memsets); the
+    host ops that launched them carry the same time and are left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: the kernels' own time in a torch.profiler
+    trace of ``reps`` calls, divided by ``reps`` (host work excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in _device_events(prof)) / 1e3 / reps
+
+
+def profile_run(name: str, fn) -> dict:
+    """Wall time of ``fn`` (ending in a synchronize), the device's busy
+    time in it from a torch.profiler trace, and the kernels that took it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ka = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in ka) / 1e3
+    top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
+    return {"workload": name, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def rand_keys(rng, n, dtype, lo=0, hi=1 << 20):
+    """n random keys in [lo, hi), hi clipped below the dtype's PAD."""
+    hi = min(hi, torch.iinfo(dtype).max)
+    return torch.from_numpy(rng.integers(lo, hi, n)).to(dtype).cuda()
+
+
+def lexsorted_rows(rng, n, c, dt, hi):
+    """(n, c) random rows with values in [0, hi), lexsorted."""
+    rows = rand_keys(rng, n * c, dt, 0, hi).reshape(n, c)
+    weights = hi ** torch.arange(c - 1, -1, -1, device="cuda")
+    return rows[torch.argsort((rows.long() * weights).sum(1))].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions on the card
+# ---------------------------------------------------------------------------
+def check_kernels(BS, UM, HP, KO, ref, rng):
+    bad = {}
+
+    def record(name, got, want):
+        m = mismatches(got, want)
+        if m:
+            bad[name] = bad.get(name, 0) + m
+
+    for dt in DTYPES:
+        pad = torch.iinfo(dt).max
+        for lg in (10, 14, 18, 22, 24):
+            n = 1 << lg
+            keys = rand_keys(rng, n, dt)
+            pos = torch.arange(n, dtype=torch.int32, device="cuda")
+            tile = min(1024, n)
+            ks, vs = BS.bitonic_sort_tiles(keys, pos, tile)
+            wk, wv = ref.sort_tiles_ref(keys, pos, tile)
+            record("bitonic_sort_tiles", ks, wk)
+            record("bitonic_sort_tiles", vs, wv)
+            for width in sorted({2 * tile, min(1 << 13, n), n}):
+                if width <= tile or width > n:
+                    continue
+                hk, hv = ref.sort_tiles_ref(keys, pos, width // 2)
+                mk, mv = BS.bitonic_merge_pairs(hk, hv, width)
+                wk, wv = ref.merge_pairs_ref(hk, hv, width)
+                record("bitonic_merge_pairs", mk, wk)
+                record("bitonic_merge_pairs", mv, wv)
+            # the full sort through kernels.ops, with engine-like PAD tails
+            keys_p = keys.clone()
+            keys_p[n - n // 8:] = pad
+            ks, vs = KO.sort_with_payload(keys_p, pos, tile=1024)
+            wk, wv = ref.sort_with_payload_ref(keys_p, pos)
+            record("bitonic_sort_tiles", ks, wk)
+            record("bitonic_sort_tiles", vs, wv)
+            for c in (1, 2, 3):
+                rows = lexsorted_rows(rng, n, c, dt, 64)
+                rows[n - n // 8:] = pad
+                record("unique_mask", UM.unique_mask(rows),
+                       ref.unique_mask_ref(rows))
+            hay = torch.sort(rand_keys(rng, n // 2, dt, 0, 4 * n)).values
+            hay[-(n // 16):] = pad
+            q = rand_keys(rng, n, dt, 0, 4 * n)
+            q[: n // 16] = pad
+            record("probe_sorted", HP.probe_sorted(q, hay),
+                   ref.probe_sorted_ref(q, hay))
+        # edge shapes through kernels.ops (the engine's entry points)
+        for n in (0, 1, 3, 96, 300, 1000):
+            keys = rand_keys(rng, n, dt, 0, 50)
+            if n >= 3:
+                keys[::3] = pad
+            pos = torch.arange(n, dtype=torch.int32, device="cuda")
+            ks, vs = KO.sort_with_payload(keys, pos, tile=64)
+            wk, wv = ref.sort_with_payload_ref(keys, pos)
+            record("sort_with_payload", ks, wk)
+            record("sort_with_payload", vs, wv)
+            if sorted(vs.tolist()) != list(range(n)):
+                bad["sort_with_payload"] = bad.get("sort_with_payload", 0) + 1
+        for n in (64, 100):
+            allpad = torch.full((n,), pad, dtype=dt, device="cuda")
+            pos = torch.arange(n, dtype=torch.int32, device="cuda")
+            ks, vs = KO.sort_with_payload(allpad, pos)
+            record("bitonic_sort_tiles", ks, allpad)
+            record("bitonic_sort_tiles", vs, pos)
+        dup = torch.full((256,), 7, dtype=dt, device="cuda")
+        pos = torch.arange(256, dtype=torch.int32, device="cuda")
+        ks, vs = KO.sort_with_payload(dup, pos, tile=64)
+        record("sort_with_payload", vs, pos)
+        for n, c in ((0, 2), (1, 1), (96, 2), (300, 3), (1000, 2)):
+            rows = lexsorted_rows(rng, n, c, dt, 5)
+            got = KO.unique_mask(rows)
+            want = (ref.unique_mask_ref(rows) if n else
+                    torch.zeros(0, dtype=torch.int32, device="cuda"))
+            record("unique_mask", got, want)
+        allpad = torch.full((128, 2), pad, dtype=dt, device="cuda")
+        record("unique_mask", KO.unique_mask(allpad),
+               torch.zeros(128, dtype=torch.int32, device="cuda"))
+        dups = torch.tensor([[3, 4]], dtype=dt, device="cuda").repeat(256, 1)
+        got = KO.unique_mask(dups)
+        record("unique_mask", got, ref.unique_mask_ref(dups))
+        if int(got.sum()) != 1:
+            bad["unique_mask"] = bad.get("unique_mask", 0) + 1
+        for nq, nh in ((0, 4), (64, 0), (1, 1), (100, 37), (300, 3),
+                       (1024, 1)):
+            hay = torch.unique(rand_keys(rng, nh, dt, 0, 4 * max(nh, 1)))
+            q = rand_keys(rng, nq, dt, 0, 4 * max(nh, 1))
+            got = KO.probe_sorted(q, hay)
+            want = (ref.probe_sorted_ref(q, hay) if hay.numel() else
+                    torch.zeros(nq, dtype=torch.int32, device="cuda"))
+            record("probe_sorted", got, want)
+        q = torch.full((64,), pad, dtype=dt, device="cuda")
+        record("probe_sorted",
+               KO.probe_sorted(q, torch.arange(16, device="cuda").to(dt)),
+               torch.zeros(64, dtype=torch.int32, device="cuda"))
+        q = torch.tensor([4, 5, 6], dtype=dt, device="cuda")
+        record("probe_sorted",
+               KO.probe_sorted(q, torch.full((32,), 5, dtype=dt,
+                                             device="cuda")),
+               torch.tensor([0, 1, 0], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# phase 3/4: the slice through the user's entry points
+# ---------------------------------------------------------------------------
+def rows_by_pred(kb):
+    """Each predicate's rows, in the engine's lexsort order."""
+    from repro_torch.engine.relation import host_order
+    out = {}
+    for p, rel in kb.rels.items():
+        rows = rel.np_rows()
+        out[p] = rows[host_order(rows)]
+    return out
+
+
+def run_lubm(device, facts):
+    """EngineKB + materialize(tg) of LUBM-L on ``device``: the KB, its
+    stats, (EngineKB s, materialize s) and (SORT_STATS, count_pulls)."""
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import LUBM_L
+    from repro_torch.engine import ops
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kb = EngineKB(LUBM_L, facts, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = materialize(kb, mode="tg")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return kb, st, (t1 - t0, t2 - t1), (dict(vars(ops.SORT_STATS)),
+                                        ops.HOST_SYNC_STATS.count_pulls)
+
+
+def run_tc_wide(device):
+    """EngineKB.from_stream + materialize(tg) of wide TC on ``device``: the
+    KB, its stats, (ingest s, materialize s) and (SORT_STATS,
+    count_pulls)."""
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import TC, tc_wide_chunks
+    from repro_torch.engine import ops
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kb = EngineKB.from_stream(TC, tc_wide_chunks(TC_CHAINS), device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = materialize(kb, mode="tg")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return kb, st, (t1 - t0, t2 - t1), (dict(vars(ops.SORT_STATS)),
+                                        ops.HOST_SYNC_STATS.count_pulls)
+
+
+class ShapeLog:
+    """Records the largest call each kernel wrapper gets during the main
+    path (the launch counts themselves live in the wrappers)."""
+
+    def __init__(self, BS, UM, HP):
+        self.largest = {}
+        self.mods = []
+        for mod, names in ((BS, ("bitonic_sort_tiles", "bitonic_merge_pairs")),
+                           (UM, ("unique_mask",)), (HP, ("probe_sorted",))):
+            for name in names:
+                self.mods.append((mod, name, getattr(mod, name)))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args):
+            size = sum(a.numel() for a in args if torch.is_tensor(a))
+            best = self.largest.get(name)
+            if args[0].is_cuda and (best is None or size >= best[0]):
+                self.largest[name] = (size, args)
+            return fn(*args)
+        return wrapped
+
+    def __enter__(self):
+        for mod, name, fn in self.mods:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.mods:
+            setattr(mod, name, fn)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times at the main path's largest shapes
+# ---------------------------------------------------------------------------
+def kernel_rows(largest, launches, BS, UM, HP, ref):
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        if name not in largest:
+            fail(f"{name} got no call on the main path")
+        _, args = largest[name]
+        if name in ("bitonic_sort_tiles", "bitonic_merge_pairs"):
+            keys, vals, block = args
+            keys, vals = keys.clone(), vals.clone()
+            fn = BS.bitonic_sort_tiles if name == "bitonic_sort_tiles" \
+                else BS.bitonic_merge_pairs
+            plain = ref.sort_tiles_ref if name == "bitonic_sort_tiles" \
+                else ref.merge_pairs_ref
+            kern = lambda: fn(keys, vals, block)  # noqa: E731
+            base = lambda: plain(keys, vals, block)  # noqa: E731
+            lib = lambda: torch.sort(keys.view(-1, block), dim=1)  # noqa: E731
+            n = keys.numel()
+            nbytes = 2 * n * (keys.element_size() + 4)
+            shape = {"n": n, "dtype": str(keys.dtype), "block": block}
+        elif name == "unique_mask":
+            (data,) = args
+            data = data.clone()
+            kern = lambda: UM.unique_mask(data)  # noqa: E731
+            base = lambda: ref.unique_mask_ref(data)  # noqa: E731
+            lib = None
+            n, c = data.shape
+            nbytes = data.numel() * data.element_size() + 4 * n
+            shape = {"n": n, "cols": c, "dtype": str(data.dtype)}
+        else:
+            q, hay = (a.clone() for a in args)
+            kern = lambda: HP.probe_sorted(q, hay)  # noqa: E731
+            base = lambda: ref.probe_sorted_ref(q, hay)  # noqa: E731
+
+            def lib():
+                idx = torch.searchsorted(hay, q).clamp_(max=hay.numel() - 1)
+                return hay[idx] == q
+            n, h = q.numel(), hay.numel()
+            nbytes = (n + h) * q.element_size() + 4 * n
+            shape = {"n": n, "hay": h, "dtype": str(q.dtype)}
+        got, want = kern(), base()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        mism = sum(mismatches(g, w) for g, w in pairs)
+        err = max_abs_err(pairs)
+        if mism:
+            fail(f"{name} disagrees with its plain version at {shape}")
+        ms = time_ms(kern)
+        dev_ms = device_ms(kern)
+        plain_ms = time_ms(base)
+        library_ms = time_ms(lib) if lib is not None else None
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "mismatches": mism, "max_abs_err": err, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms, "shape": shape})
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a card")
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import (LUBM_L, TC, lubm_facts,
+                                             tc_wide_chunks, tc_wide_total)
+    from repro_torch.kernels import bitonic_sort as BS
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import hash_probe as HP
+    from repro_torch.kernels import ops as KO
+    from repro_torch.kernels import unique_mask as UM
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    build.library()
+    log(f"[build] {time.perf_counter() - t0:.1f} s "
+        f"(nvcc: {build.BUILD_SECONDS})")
+
+    # 2. kernels against plain versions
+    t0 = time.perf_counter()
+    bad = check_kernels(BS, UM, HP, KO, ref, np.random.default_rng(0))
+    log(f"[kernels] checked in {time.perf_counter() - t0:.1f} s; "
+        f"mismatches {bad or 0}")
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+
+    # 3. LUBM-L, card against CPU
+    facts = lubm_facts(n_univ=LUBM_UNIV)
+    log(f"[lubm] n_univ={LUBM_UNIV}: {len(facts)} base facts")
+    with ShapeLog(BS, UM, HP) as shapes:
+        KO.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        kb_g, st_g, wall_g, cnt_g = run_lubm("cuda", facts)
+        launches_lubm = KO.launch_counts()
+        lubm_mem = torch.cuda.max_memory_allocated()
+        kb_c, st_c, wall_c, cnt_c = run_lubm("cpu", facts)
+        log(f"[lubm] cuda: EngineKB {wall_g[0]:.2f} s + materialize "
+            f"{wall_g[1]:.3f} s; cpu: EngineKB {wall_c[0]:.2f} s + "
+            f"materialize {wall_c[1]:.3f} s; facts "
+            f"{kb_g.num_facts()}, rounds {st_g.rounds}, triggers "
+            f"{st_g.triggers}, derived {st_g.derived}, {cnt_g[0]}, "
+            f"count_pulls {cnt_g[1]}; launches {launches_lubm}; peak "
+            f"{lubm_mem} bytes")
+        if (st_g.rounds, st_g.triggers, st_g.derived, cnt_g) != \
+                (st_c.rounds, st_c.triggers, st_c.derived, cnt_c):
+            fail(f"lubm stats differ: cuda {st_g} {cnt_g} vs cpu {st_c} "
+                 f"{cnt_c}")
+        rg, rc = rows_by_pred(kb_g), rows_by_pred(kb_c)
+        if rg.keys() != rc.keys() or any(
+                not np.array_equal(rg[p], rc[p]) for p in rg):
+            fail("lubm fact rows differ between cuda and cpu")
+        if any(launches_lubm[k] == 0 for k in KERNELS):
+            fail(f"a kernel was never launched on LUBM-L: {launches_lubm}")
+        del kb_g, kb_c
+
+        # 4. tc_wide at scale, card against CPU
+        KO.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        kb, st, (t_in, t_mat), cnt_g = run_tc_wide("cuda")
+        launches_tc = KO.launch_counts()
+        # the reference's count: without the ``e~aux`` twin that program
+        # normalization adds for the mixed body ``T(X, Y) & e(Y, Z)``
+        n_facts = sum(r.count for p, r in kb.rels.items() if "~" not in p)
+        tc_mem = torch.cuda.max_memory_allocated()
+        log(f"[tc_wide] chains={TC_CHAINS}: facts {n_facts} "
+            f"(num_facts() {kb.num_facts()} with e~aux), rounds "
+            f"{st.rounds}, triggers {st.triggers}, {cnt_g[0]}, count_pulls "
+            f"{cnt_g[1]}; ingest {t_in:.2f} s, materialize {t_mat:.2f} s, "
+            f"{n_facts / (t_in + t_mat):.0f} facts/s end to end; peak "
+            f"{tc_mem} bytes; launches {launches_tc}")
+        if n_facts != tc_wide_total(TC_CHAINS):
+            fail(f"tc_wide has {n_facts} facts, expected "
+                 f"{tc_wide_total(TC_CHAINS)}")
+        kb_c, st_c, wall_c, cnt_c = run_tc_wide("cpu")
+        log(f"[tc_wide] cpu: ingest {wall_c[0]:.2f} s + materialize "
+            f"{wall_c[1]:.2f} s")
+        if (st.rounds, st.triggers, st.derived, cnt_g) != \
+                (st_c.rounds, st_c.triggers, st_c.derived, cnt_c):
+            fail(f"tc_wide stats differ: cuda {st} {cnt_g} vs cpu {st_c} "
+                 f"{cnt_c}")
+        rg, rc = rows_by_pred(kb), rows_by_pred(kb_c)
+        if rg.keys() != rc.keys() or any(
+                not np.array_equal(rg[p], rc[p]) for p in rg):
+            fail("tc_wide fact rows differ between cuda and cpu")
+        del kb, kb_c, rg, rc
+
+    # 5. times at the main path's largest shapes
+    launches = {k: launches_lubm[k] + launches_tc[k] for k in KERNELS}
+    rows = kernel_rows(shapes.largest, launches, BS, UM, HP, ref)
+    for r in rows:
+        r["launches_lubm"] = launches_lubm[r["name"]]
+        r["launches_tc_wide"] = launches_tc[r["name"]]
+
+    # 6. where the time goes: warm re-runs of materialize under the profiler
+    kb = EngineKB(LUBM_L, facts)
+    prof = [profile_run("lubm_l materialize", lambda: materialize(kb))]
+    kb = EngineKB.from_stream(TC, tc_wide_chunks(TC_CHAINS))
+    prof.append(profile_run("tc_wide materialize", lambda: materialize(kb)))
+    del kb
+    print(json.dumps({"profile": prof}))
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""Sorted-membership probe (the Def. 23 antijoin / redundancy-filter core):
+wrapper over ``csrc/hash_probe.cu``.
+
+Replaces the Pallas kernel ``probe_sorted`` (``src/repro/kernels/
+hash_probe.py``, body ``_probe_kernel``).
+
+Bound on the card: the latency of ceil(log2(H+1)) dependent loads per
+query, rather than bytes, at the engine's shapes.  One thread per query
+runs the reference's branch-free binary search; the haystack stays in
+device memory, where L2 serves the search tree's upper levels to every
+query, instead of being copied whole into one fast-memory block as on the
+TPU.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+# kernel launches since the last reset (``kernels.ops.reset_launch_counts``)
+LAUNCHES = {"probe_sorted": 0}
+
+
+def probe_sorted(queries: torch.Tensor, hay_sorted: torch.Tensor
+                 ) -> torch.Tensor:
+    """queries: (N,); hay_sorted: (H,) sorted, H >= 1, same dtype.
+    Returns (N,) int32 membership flags."""
+    if queries.dim() != 1 or hay_sorted.dim() != 1 or hay_sorted.shape[0] < 1:
+        raise ValueError(f"queries {tuple(queries.shape)} and haystack "
+                         f"{tuple(hay_sorted.shape)} must be 1-D, H >= 1")
+    if (queries.dtype not in build.KEY_CODES
+            or hay_sorted.dtype != queries.dtype):
+        raise TypeError(f"queries ({queries.dtype}) and haystack "
+                        f"({hay_sorted.dtype}) must share one of int16/"
+                        "int32/int64")
+    if queries.device != hay_sorted.device:
+        raise ValueError("queries and haystack must be on one device")
+    if queries.device.type == "cpu":
+        return ref.probe_sorted_ref(queries, hay_sorted)
+    if (queries.device.type != "cuda" or not queries.is_contiguous()
+            or not hay_sorted.is_contiguous()):
+        raise ValueError("queries and haystack must be contiguous CPU or "
+                         "CUDA tensors")
+    n, h = queries.shape[0], hay_sorted.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=queries.device)
+    if n:
+        steps = max(1, math.ceil(math.log2(h + 1)))
+        build.launch("rt_probe_sorted", queries.device,
+                     build.KEY_CODES[queries.dtype], queries.data_ptr(),
+                     hay_sorted.data_ptr(), out.data_ptr(), n, h, steps)
+        LAUNCHES["probe_sorted"] += 1
+    return out

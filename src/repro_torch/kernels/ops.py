@@ -1,0 +1,93 @@
+"""Kernel entry points the engine calls, with the reference's edge-shape
+contract (``repro.kernels.ops``).
+
+Dispatch follows the tensor's device: a CUDA tensor launches the hand
+kernels in ``csrc/`` (or raises), a CPU tensor takes their plain versions
+in ``kernels.ref``.  The shape handling around the kernels is the same on
+both, so the CPU tests reach it:
+
+* empty inputs return at once;
+* non-pow-2 sort lengths are padded to the next power of two with the key
+  dtype's max and sorted with POSITIONS as the payload; the synthetic
+  entries are dropped and the caller's payload is gathered back, so the
+  returned payload is always a permutation of the caller's;
+* tiles are clamped to pow-2 divisors of the padded length.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.engine.relation import next_pow2
+from repro_torch.kernels import bitonic_sort as BS
+from repro_torch.kernels import hash_probe as HP
+from repro_torch.kernels import unique_mask as UM
+
+_COUNTERS = (BS.LAUNCHES, UM.LAUNCHES, HP.LAUNCHES)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last reset."""
+    out = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def _pow2_tile(tile: int, n: int) -> int:
+    """Largest pow-2 tile <= min(tile, n); n must itself be pow-2."""
+    t = max(1, min(tile, n))
+    return 1 << (t.bit_length() - 1)
+
+
+def _sort_pow2(keys, vals, tile: int):
+    keys, vals = BS.bitonic_sort_tiles(keys, vals, tile)
+    width = tile * 2
+    while width <= keys.shape[0]:
+        keys, vals = BS.bitonic_merge_pairs(keys, vals, width)
+        width *= 2
+    return keys, vals
+
+
+def sort_with_payload(keys: torch.Tensor, vals: torch.Tensor,
+                      tile: int = 1024):
+    """Full sort of (n,) int16/int32/int64 keys carrying a payload: the
+    tile-sort kernel, then the pairwise merges at widths doubling to n.  On
+    pow-2 lengths the payload rides the network and must be int32."""
+    n = keys.shape[0]
+    if n == 0:
+        return keys, vals
+    m = next_pow2(n)
+    t = _pow2_tile(tile, m)
+    if m == n:
+        return _sort_pow2(keys.contiguous(), vals.contiguous(), t)
+    sentinel = torch.iinfo(keys.dtype).max
+    keys_p = torch.cat([keys, keys.new_full((m - n,), sentinel)])
+    pos = torch.arange(m, dtype=torch.int32, device=keys.device)
+    keys_p, pos = _sort_pow2(keys_p, pos, t)
+    # (key, position) order puts every synthetic entry (sentinel key,
+    # position >= n) after every real one, so dropping them is keeping the
+    # first n slots
+    return keys_p[:n], vals[pos[:n].long()]
+
+
+def unique_mask(data: torch.Tensor) -> torch.Tensor:
+    """(N, C) lexsorted rows -> (N,) int32 first-occurrence mask of the
+    valid rows."""
+    if data.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int32, device=data.device)
+    return UM.unique_mask(data.contiguous())
+
+
+def probe_sorted(queries: torch.Tensor, hay_sorted: torch.Tensor
+                 ) -> torch.Tensor:
+    """(N,) queries -> (N,) int32 membership flags in a sorted haystack."""
+    n = queries.shape[0]
+    if n == 0 or hay_sorted.shape[0] == 0:
+        return torch.zeros(n, dtype=torch.int32, device=queries.device)
+    return HP.probe_sorted(queries.contiguous(), hay_sorted.contiguous())

@@ -1,0 +1,74 @@
+"""The port on the card: each CUDA kernel against its plain version, and the
+slice on ``cuda`` against the same run on the CPU.  These tests need a CUDA
+card and skip without one; on the machine with the card run
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.data.kb_sources import LUBM_L, lubm_facts
+from repro_torch.engine import ops
+from repro_torch.engine.materialize import EngineKB, materialize
+from repro_torch.engine.relation import host_order
+from repro_torch.kernels import bitonic_sort as BS
+from repro_torch.kernels import ops as KO
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+DTYPES = [torch.int16, torch.int32, torch.int64]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n", [1, 100, 1 << 12, 1 << 16])
+def test_kernels_match_plain_versions(card, n, dt):
+    g = torch.Generator().manual_seed(n)
+    hi = min(1 << 20, torch.iinfo(dt).max)
+    keys = torch.randint(0, hi, (n,), generator=g).to(dt).to(card)
+    pos = torch.arange(n, dtype=torch.int32, device=card)
+    ks, vs = KO.sort_with_payload(keys, pos, tile=256)
+    wk, wv = ref.sort_with_payload_ref(keys, pos)
+    assert torch.equal(ks, wk) and torch.equal(vs, wv)
+    rows = torch.randint(0, 4, (n, 2), generator=g).to(dt).to(card)
+    rows = ops.lexsort_core(rows)
+    assert torch.equal(KO.unique_mask(rows), ref.unique_mask_ref(rows))
+    hay = torch.sort(keys[: max(1, n // 2)]).values
+    assert torch.equal(KO.probe_sorted(keys, hay),
+                       ref.probe_sorted_ref(keys, hay))
+    if n >= 1 << 12:
+        m = 1 << 13 if n > 1 << 12 else n
+        hk, hv = ref.sort_tiles_ref(keys[:m], pos[:m], m // 2)
+        mk, mv = BS.bitonic_merge_pairs(hk, hv, m)
+        wk, wv = ref.merge_pairs_ref(hk, hv, m)
+        assert torch.equal(mk, wk) and torch.equal(mv, wv)
+
+
+def test_slice_on_the_card_matches_the_cpu(card):
+    facts = lubm_facts(n_univ=4)
+    results = []
+    for device in (card, "cpu"):
+        ops.SORT_STATS.reset()
+        ops.HOST_SYNC_STATS.reset()
+        KO.reset_launch_counts()
+        kb = EngineKB(LUBM_L, facts, device=device)
+        st = materialize(kb, mode="tg")
+        rows = {p: r.np_rows() for p, r in kb.rels.items()}
+        results.append(({p: v[host_order(v)] for p, v in rows.items()},
+                        (st.rounds, st.triggers, st.derived,
+                         dict(vars(ops.SORT_STATS)),
+                         ops.HOST_SYNC_STATS.count_pulls),
+                        KO.launch_counts()))
+    (rg, sg, lg), (rc, sc, lc) = results
+    assert sg == sc
+    assert rg.keys() == rc.keys()
+    assert all(np.array_equal(rg[p], rc[p]) for p in rg)
+    assert all(v > 0 for v in lg.values()), lg
+    assert set(lc.values()) == {0}

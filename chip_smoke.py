@@ -9,7 +9,9 @@ Phases, each fatal on failure:
 2. hold every kernel against its plain PyTorch version on the card, at
    int16/int32/int64, at engine shapes 2^10 .. 2^24 and at the edge shapes
    (empty, non-pow-2, all-PAD, all-duplicate, PAD-valued keys, haystack of
-   length 1); results are integers, so any mismatch fails;
+   length 1), and the sort kernels over every tile, merge widths from 2 up
+   past the merge's span, ties across the halves and one half wholly above
+   the other; results are integers, so any mismatch fails;
 3. materialize LUBM-L (``lubm_facts(n_univ=2000)``, about 1.08 M base
    facts) with ``mode="tg"`` on the card and hold the result against the
    same run on the CPU: per-predicate row sets, rounds, triggers, derived,
@@ -20,11 +22,14 @@ Phases, each fatal on failure:
 5. time each kernel at the largest shape the main path gave it (CUDA
    events around back-to-back calls, and the kernels' device time from a
    torch.profiler trace), beside its plain version, a PyTorch library call
-   where one computes the same function, and its bound;
+   where one computes the same function, and its bound; and break a whole
+   2^22 int32 sort down into its tile sort and its merge at every width,
+   beside ``torch.sort(keys, stable=True)``;
 6. profile warm re-runs of both materializations: wall time, the device's
    busy time, and the kernels that took it.
 
-It prints a ``{"profile": [...]}`` line, a ``{"kernels": [...]}`` line,
+It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
+a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -32,6 +37,7 @@ otherwise.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -257,8 +263,66 @@ def check_kernels(BS, UM, HP, KO, ref, rng):
                KO.probe_sorted(q, torch.full((32,), 5, dtype=dt,
                                              device="cuda")),
                torch.tensor([0, 1, 0], dtype=torch.int32, device="cuda"))
+    check_sort_sweep(BS, ref, rng, record)
     torch.cuda.synchronize()
     return bad
+
+
+def sweep_inputs(rng, n, width, dt, case):
+    """(keys, payload) of length n for one case of ``check_sort_sweep``;
+    "a_above" / "b_above" put the first / second half of every width-block
+    wholly above the other."""
+    pad = torch.iinfo(dt).max
+    pos = torch.from_numpy(rng.permutation(n).astype(np.int32)).cuda()
+    if case == "random":
+        keys = rand_keys(rng, n, dt, 0, 1 << 12)
+    elif case == "equal":        # ties across the halves; payload orders
+        keys = torch.full((n,), 7, dtype=dt, device="cuda")
+        pos = pos % 5            # and equal pairs too
+    elif case == "pad":
+        keys = torch.full((n,), pad, dtype=dt, device="cuda")
+    elif case == "max":          # the dtype's max beside real keys
+        keys = rand_keys(rng, n, dt, 0, 64)
+        keys[torch.from_numpy(rng.random(n) < 0.25).cuda()] = pad
+    else:
+        keys = rand_keys(rng, n, dt, 0, 1000)
+        upper = (torch.arange(n, device="cuda") % width) >= width // 2
+        keys = keys + 1000 * (~upper if case == "a_above" else upper).to(dt)
+    return keys, pos
+
+
+def check_sort_sweep(BS, ref, rng, record):
+    """Every power-of-two tile up to the shared-memory block (at 4 blocks
+    and at 3 tiles), and merges at widths 2, 4, 8, the merge kernel's span,
+    twice the span and 2^16 (plus ragged lengths that leave the last span
+    short), each at int16/int32/int64 with random, all-equal, all-PAD,
+    max-beside-real and one-half-above-the-other keys."""
+    from repro_torch.kernels import build
+    smem_block, span = build.library().rt_smem_block(), BS.merge_span()
+    cases = ("random", "equal", "pad", "max", "a_above", "b_above")
+    for dt in DTYPES:
+        tile = 1
+        while tile <= smem_block:
+            for n in (4 * smem_block, 3 * tile):
+                for case in cases:
+                    keys, pos = sweep_inputs(rng, n, tile, dt, case)
+                    got = BS.bitonic_sort_tiles(keys, pos, tile)
+                    want = ref.sort_tiles_ref(keys, pos, tile)
+                    record("bitonic_sort_tiles", got[0], want[0])
+                    record("bitonic_sort_tiles", got[1], want[1])
+            tile *= 2
+        for width in (2, 4, 8, 16, span, 2 * span, 1 << 16):
+            lengths = {max(1 << 17, 2 * width), 3 * width}
+            if width < span:
+                lengths.add(span + span // 2)
+            for n in sorted(lengths):
+                for case in cases:
+                    keys, pos = ref.sort_tiles_ref(
+                        *sweep_inputs(rng, n, width, dt, case), width // 2)
+                    got = BS.bitonic_merge_pairs(keys, pos, width)
+                    want = ref.merge_pairs_ref(keys, pos, width)
+                    record("bitonic_merge_pairs", got[0], want[0])
+                    record("bitonic_merge_pairs", got[1], want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +473,36 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
     return rows
 
 
+def sort_breakdown(BS, KO, rng) -> dict:
+    """A whole 2^22 int32 ``sort_with_payload`` (tile 1024): the device
+    time of its tile sort and of its merge at each width, of the whole sort,
+    and of ``torch.sort(keys, stable=True)`` as a yardstick the port never
+    calls.  The bound counts one read and one write of every key and
+    payload per kernel call."""
+    n, tile = 1 << 22, 1024
+    keys = rand_keys(rng, n, torch.int32, 0, 1 << 30)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    cur = BS.bitonic_sort_tiles(keys, pos, tile)
+    merge_ms = {}
+    width = 2 * tile
+    while width <= n:
+        merge = functools.partial(BS.bitonic_merge_pairs, *cur, width)
+        merge_ms[str(width)] = device_ms(merge)
+        cur = merge()
+        width *= 2
+    full = lambda: KO.sort_with_payload(keys, pos, tile=tile)  # noqa: E731
+    lib = lambda: torch.sort(keys, stable=True)  # noqa: E731
+    calls = 1 + len(merge_ms)
+    return {"n": n, "tile": tile, "kernel_calls": calls,
+            "tile_device_ms": device_ms(
+                lambda: BS.bitonic_sort_tiles(keys, pos, tile)),
+            "merge_device_ms": merge_ms,
+            "sort_ms": time_ms(full), "sort_device_ms": device_ms(full),
+            "bound_ms": calls * 2 * n * 8 / HBM_BYTES_PER_S * 1e3,
+            "torch_sort_ms": time_ms(lib), "torch_sort_device_ms":
+            device_ms(lib)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -507,6 +601,7 @@ def main() -> int:
     for r in rows:
         r["launches_lubm"] = launches_lubm[r["name"]]
         r["launches_tc_wide"] = launches_tc[r["name"]]
+    sort_2_22 = sort_breakdown(BS, KO, np.random.default_rng(1))
 
     # 6. where the time goes: warm re-runs of materialize under the profiler
     kb = EngineKB(LUBM_L, facts)
@@ -515,6 +610,7 @@ def main() -> int:
     prof.append(profile_run("tc_wide materialize", lambda: materialize(kb)))
     del kb
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,22 @@
-"""Bitonic tile sort and pairwise merge of int16/int32/int64 keys carrying
-an int32 payload: wrappers over ``csrc/bitonic_sort.cu``.
+"""Tile sort and pairwise merge of int16/int32/int64 keys carrying an
+int32 payload: wrappers over ``csrc/bitonic_sort.cu``.
 
 Replaces the Pallas kernels ``bitonic_sort_tiles`` and ``bitonic_merge_pairs``
 (``src/repro/kernels/bitonic_sort.py``, bodies ``_bitonic_kernel`` and
-``_merge_kernel``).
+``_merge_kernel``).  The names stay so that the counterparts are easy to
+find; on the card neither is a bitonic network any more.
 
-Bound on the card: device-memory bytes.  Every compare-exchange stage reads
-and writes each key and payload once.  The tile sort keeps a whole tile in
-shared memory (one CTA per tile), so it costs one read and one write per
-element.  A merge of width up to 4096 elements also runs in shared memory.
-A wider merge runs its first stages as one grid-wide pass each, then
-finishes in shared memory; this is simple, and the passes it adds are the
-first thing to cut (a merge-path merge) when the sort has to get faster.
+Both kernels rest on one merge-path co-rank search.  The tile sort is a
+block merge sort, one CTA per tile: each thread sorts 8 pairs in registers,
+then log2(tile / 8) merge rounds run in shared memory, one barrier each.
+The merge is one pass at every width: each CTA owns a span of outputs,
+loads the slices of the two halves that feed it and merges them in shared
+memory.  Above the span's width a small kernel first co-ranks every span
+boundary into scratch that the wrapper allocates.
+
+Bound on the card: device-memory bytes.  Each call reads every key and
+payload once and writes them once, so a full sort of n keys from tile 1024
+is 1 + log2(n / 1024) passes.
 
 Pairs are ordered by (key, payload), so with positions as the payload the
 result is that of a stable sort, on the card and in the plain versions
@@ -19,12 +24,21 @@ result is that of a stable sort, on the card and in the plain versions
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset (``kernels.ops.reset_launch_counts``)
 LAUNCHES = {"bitonic_sort_tiles": 0, "bitonic_merge_pairs": 0}
+
+
+@functools.cache
+def merge_span() -> int:
+    """Outputs per CTA of the merge kernel: wider merges first co-rank every
+    span boundary."""
+    return build.library().rt_merge_span()
 
 
 def _check(keys: torch.Tensor, vals: torch.Tensor, block: int) -> None:
@@ -74,10 +88,14 @@ def bitonic_merge_pairs(keys: torch.Tensor, vals: torch.Tensor, width: int):
     if keys.device.type == "cpu":
         return ref.merge_pairs_ref(keys, vals, width)
     ko, vo = torch.empty_like(keys), torch.empty_like(vals)
-    if keys.shape[0]:
+    n = keys.shape[0]
+    if n:
+        span = merge_span()
+        cuts = (torch.empty(-(-n // span), dtype=torch.int64,
+                            device=keys.device) if width > span else None)
         build.launch("rt_merge_pairs", keys.device,
                      build.KEY_CODES[keys.dtype], keys.data_ptr(),
-                     vals.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-                     keys.shape[0], width)
+                     vals.data_ptr(), ko.data_ptr(), vo.data_ptr(), n,
+                     width, None if cuts is None else cuts.data_ptr())
         LAUNCHES["bitonic_merge_pairs"] += 1
     return ko, vo

@@ -13,11 +13,15 @@ from repro_torch.engine import ops
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import host_order
 from repro_torch.kernels import bitonic_sort as BS
+from repro_torch.kernels import build
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.int16, torch.int32, torch.int64]
+# inputs of the sort kernels' sweeps: "a_above" / "b_above" put the first /
+# second half of every block wholly above the other
+CASES = ["random", "equal", "pad", "max", "a_above", "b_above"]
 
 
 @pytest.fixture
@@ -72,3 +76,57 @@ def test_slice_on_the_card_matches_the_cpu(card):
     assert all(np.array_equal(rg[p], rc[p]) for p in rg)
     assert all(v > 0 for v in lg.values()), lg
     assert set(lc.values()) == {0}
+
+
+def case_inputs(n, width, dt, case, seed):
+    """(keys, payload) on the card for one of CASES, made with numpy."""
+    rng = np.random.default_rng(seed)
+    pad = torch.iinfo(dt).max
+    pos = rng.permutation(n).astype(np.int32)
+    if case == "random":
+        keys = rng.integers(0, 1 << 12, n)
+    elif case == "equal":             # ties across the halves, equal pairs
+        keys = np.full(n, 7)
+        pos %= 5
+    elif case == "pad":
+        keys = np.full(n, pad)
+    elif case == "max":               # the dtype's max beside real keys
+        keys = np.where(rng.random(n) < 0.25, pad, rng.integers(0, 64, n))
+    else:
+        upper = np.arange(n) % width >= width // 2
+        keys = rng.integers(0, 1000, n) + 1000 * (
+            ~upper if case == "a_above" else upper)
+    return (torch.from_numpy(keys).to(dt).cuda(),
+            torch.from_numpy(pos).cuda())
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_tile_sort_every_tile(card, dt, case):
+    """Every tile, at a length of many CTAs and at three tiles (one CTA
+    with a short span for tiles below a thread's items)."""
+    smem_block = build.library().rt_smem_block()
+    tile = 1
+    while tile <= smem_block:
+        for n in (4 * smem_block, 3 * tile):
+            keys, pos = case_inputs(n, tile, dt, case, tile + n)
+            ks, vs = BS.bitonic_sort_tiles(keys, pos, tile)
+            wk, wv = ref.sort_tiles_ref(keys, pos, tile)
+            assert torch.equal(ks, wk) and torch.equal(vs, wv), (tile, n)
+        tile *= 2
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_merge_every_width_class(card, dt, case):
+    """Widths below, at and above the merge kernel's span, including the
+    widths 2 and 4 whose blocks a thread's items cross, and lengths that
+    leave the last span short."""
+    span = BS.merge_span()
+    for width in (2, 4, 8, span, 2 * span, 1 << 16):
+        for n in sorted({max(1 << 17, 2 * width), 3 * width}):
+            keys, pos = ref.sort_tiles_ref(
+                *case_inputs(n, width, dt, case, width + n), width // 2)
+            mk, mv = BS.bitonic_merge_pairs(keys, pos, width)
+            wk, wv = ref.merge_pairs_ref(keys, pos, width)
+            assert torch.equal(mk, wk) and torch.equal(mv, wv), (width, n)

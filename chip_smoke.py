@@ -9,9 +9,11 @@ Phases, each fatal on failure:
 2. hold every kernel against its plain PyTorch version on the card, at
    int16/int32/int64, at engine shapes 2^10 .. 2^24 and at the edge shapes
    (empty, non-pow-2, all-PAD, all-duplicate, PAD-valued keys, haystack of
-   length 1), and the sort kernels over every tile, merge widths from 2 up
-   past the merge's span, ties across the halves and one half wholly above
-   the other; results are integers, so any mismatch fails;
+   length 1), the probe around its shared search table and past L2
+   (haystacks of 2^22 and 2^24 keys), and the sort kernels over every
+   tile, merge widths from 2 up past the merge's span, ties across the
+   halves and one half wholly above the other; results are integers, so
+   any mismatch fails;
 3. materialize LUBM-L (``lubm_facts(n_univ=2000)``, about 1.08 M base
    facts) with ``mode="tg"`` on the card and hold the result against the
    same run on the CPU: per-predicate row sets, rounds, triggers, derived,
@@ -24,12 +26,13 @@ Phases, each fatal on failure:
    torch.profiler trace), beside its plain version, a PyTorch library call
    where one computes the same function, and its bound; and break a whole
    2^22 int32 sort down into its tile sort and its merge at every width,
-   beside ``torch.sort(keys, stable=True)``;
+   beside ``torch.sort(keys, stable=True)``; and time the probe over a
+   grid of shapes (``PROBE_GRID``), haystacks past L2 included;
 6. profile warm re-runs of both materializations: wall time, the device's
    busy time, and the kernels that took it.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
-a ``{"kernels": [...]}`` line,
+a ``{"probe_grid": {...}}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -263,9 +266,81 @@ def check_kernels(BS, UM, HP, KO, ref, rng):
                KO.probe_sorted(q, torch.full((32,), 5, dtype=dt,
                                              device="cuda")),
                torch.tensor([0, 1, 0], dtype=torch.int32, device="cuda"))
+    check_probe_edges(HP, ref, rng, record)
     check_sort_sweep(BS, ref, rng, record)
     torch.cuda.synchronize()
     return bad
+
+
+PROBE_KINDS = ("distinct", "runs", "pad_tail", "all_pad", "below", "above")
+
+
+def probe_inputs(rng, kind, nq, nh, dt):
+    """(queries, sorted haystack) on the card: "distinct" keys (every 7th
+    query PAD), "runs" of one key (the longest over the middle of the
+    haystack), a "pad_tail" of a third of the haystack, "all_pad", or
+    every query "below" the first key / "above" the last."""
+    pad = torch.iinfo(dt).max
+    hi = min(4 * nh, pad - 64)  # room for "below" to shift it up
+    if kind == "all_pad":
+        hay = np.full(nh, pad)
+    elif kind == "runs":
+        hay = np.sort(rng.integers(0, 8, nh))
+        hay[nh // 2 - nh // 8: nh // 2 + nh // 8 + 1] = 9
+        hay = np.sort(hay)
+    elif kind == "distinct" and nh <= hi:
+        hay = np.sort(rng.choice(hi, nh, replace=False))
+    else:
+        hay = np.sort(rng.integers(0, hi, nh))
+        if kind == "pad_tail":
+            hay[nh - nh // 3:] = pad
+    if kind == "below":
+        hay = hay + 64
+        q = np.minimum(rng.integers(-64, 64, nq), hay[0] - 1)
+    elif kind == "above":
+        q = np.minimum(int(hay[-1]) + 1 + rng.integers(0, 64, nq), pad)
+    elif kind == "runs":
+        q = rng.integers(-1, 12, nq)
+    else:
+        q = rng.integers(0, hi, nq)
+        q[::7] = pad
+    return (torch.from_numpy(q).to(dt).cuda(),
+            torch.from_numpy(hay).to(dt).cuda())
+
+
+def check_probe_edges(HP, ref, rng, record):
+    """The probe around its shared search table: haystacks of 2^L - 1, 2^L
+    and 2^L + 1 keys for L = 8, 10, 12, and (the table holds heads of
+    128-byte lines, u keys each) of 2^L - 1, 2^L and 2^L + 1 heads for
+    L = 8 and 12, each a key short, exact and a key over, with 2^14
+    queries (the narrow grid) and 2^19 (the wide one); one key; lengths
+    that leave the search below the table several steps; 2^22 and 2^24
+    keys (past the 50 MB L2 at int32 and int64); each of ``PROBE_KINDS``
+    at int16/int32/int64; and haystacks that are views starting inside a
+    128-byte line."""
+    for dt in DTYPES:
+        u = 128 // torch.tensor([], dtype=dt).element_size()
+        sizes = [(1 << lv) + d for lv in (8, 10, 12) for d in (-1, 0, 1)]
+        sizes += [((1 << lv) + d) * u + e for lv in (8, 12)
+                  for d in (-1, 0, 1) for e in (-1, 0, 1)]
+        sizes += [1, 9 << 12, (81 << 12) + 5, (729 << 12) - 1]
+        for kind in PROBE_KINDS:
+            for nh in sizes:
+                for nq in (1 << 14, 1 << 19):
+                    q, hay = probe_inputs(rng, kind, nq, nh, dt)
+                    record("probe_sorted", HP.probe_sorted(q, hay),
+                           ref.probe_sorted_ref(q, hay))
+        for nh in (1 << 22, 1 << 24):
+            for kind in ("distinct", "pad_tail"):
+                q, hay = probe_inputs(rng, kind, 1 << 16, nh, dt)
+                record("probe_sorted", HP.probe_sorted(q, hay),
+                       ref.probe_sorted_ref(q, hay))
+        # haystacks that start inside a 128-byte line: views at an offset
+        q, hay = probe_inputs(rng, "distinct", 1 << 14, 5000, dt)
+        for off in (1, 3, 7, 9):
+            view = hay[off:]
+            record("probe_sorted", HP.probe_sorted(q, view),
+                   ref.probe_sorted_ref(q, view))
 
 
 def sweep_inputs(rng, n, width, dt, case):
@@ -450,7 +525,7 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
                 idx = torch.searchsorted(hay, q).clamp_(max=hay.numel() - 1)
                 return hay[idx] == q
             n, h = q.numel(), hay.numel()
-            nbytes = (n + h) * q.element_size() + 4 * n
+            nbytes = probe_bytes(q, hay)
             shape = {"n": n, "hay": h, "dtype": str(q.dtype)}
         got, want = kern(), base()
         pairs = list(zip(got, want)) if isinstance(got, tuple) \
@@ -471,6 +546,42 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": library_ms, "shape": shape})
     return rows
+
+
+def probe_bytes(q, hay) -> int:
+    """Bytes the membership probe must move on these inputs: the queries
+    read and the flags written once, and of the haystack the 32-byte
+    sectors that hold the queries' lower bounds (an answer rests on
+    the key there; no search needs to read the rest)."""
+    sector = 32 // hay.element_size()
+    pos = torch.searchsorted(hay, q).clamp_(max=hay.numel() - 1)
+    return (q.numel() * (q.element_size() + 4)
+            + torch.unique(pos // sector).numel() * 32)
+
+
+# (queries, haystack keys, key type) of the probe's shape grid
+PROBE_GRID = [(n, h, dt) for dt in (torch.int32, torch.int64)
+              for n in (1 << 16, 1 << 20)
+              for h in (1 << 12, 1 << 18, 1 << 22, 1 << 24)]
+
+
+def probe_grid(HP, ref, rng) -> dict:
+    """The probe over ``PROBE_GRID``: random keys in [0, 4H), so about a
+    fifth of the queries are found; mismatches against the plain version,
+    device time, time per call, and the byte bound (``probe_bytes``).  At
+    2^24 keys the haystack (64 MB at int32, 128 MB at int64) is larger
+    than the 50 MB L2."""
+    out = {}
+    for n, h, dt in PROBE_GRID:
+        hay = torch.sort(rand_keys(rng, h, dt, 0, 4 * h)).values
+        q = rand_keys(rng, n, dt, 0, 4 * h)
+        kern = functools.partial(HP.probe_sorted, q, hay)
+        out[f"{n}/{h}/{str(dt).split('.')[-1]}"] = {
+            "mismatches": mismatches(kern(), ref.probe_sorted_ref(q, hay)),
+            "device_ms": device_ms(kern), "ms": time_ms(kern),
+            "bound_ms": probe_bytes(q, hay) / HBM_BYTES_PER_S * 1e3}
+        del hay, q
+    return out
 
 
 def sort_breakdown(BS, KO, rng) -> dict:
@@ -602,6 +713,9 @@ def main() -> int:
         r["launches_lubm"] = launches_lubm[r["name"]]
         r["launches_tc_wide"] = launches_tc[r["name"]]
     sort_2_22 = sort_breakdown(BS, KO, np.random.default_rng(1))
+    grid = probe_grid(HP, ref, np.random.default_rng(3))
+    if any(v["mismatches"] for v in grid.values()):
+        fail(f"probe_sorted disagrees with its plain version: {grid}")
 
     # 6. where the time goes: warm re-runs of materialize under the profiler
     kb = EngineKB(LUBM_L, facts)
@@ -611,6 +725,7 @@ def main() -> int:
     del kb
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
+    print(json.dumps({"probe_grid": grid}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 materialization, each copy in its own process, in turns.
 
     python scripts/compare_port.py [--tiles] [--sort] [--materialize]
-        [--probes] [--reps 3] [--rounds 2] [--out FILE] NAME=SRC ...
+        [--probes] [--probe] [--probe-main] [--probe-cuts]
+        [--probe-variants SPEC,...]
+        [--reps 3] [--rounds 2] [--out FILE] NAME=SRC ...
 
 ``SRC`` is a directory holding a ``repro_torch`` package (``src`` for this
 checkout; unpack another commit with ``git archive`` into a directory that
@@ -30,6 +32,24 @@ second with every call fenced by synchronizes.
 ``csrc/bitonic_sort.cu`` is cut down (``PROBES``) to find what the tile
 sort's time goes to; their results are wrong and only their times count.
 
+``--probe`` times the sorted-membership probe over ``chip_smoke.py``'s
+grid of shapes (``probe_grid``: queries x haystack length x key type):
+device time, time per call and mismatches against the plain version.
+``--probe-main`` adds, to every copy that times the probe but the cuts,
+the probe at the largest call of LUBM-L's ``materialize`` (its own
+inputs).
+``--probe-cuts`` adds copies of the first package whose
+``csrc/hash_probe.cu`` is cut down (``PROBE_CUTS``); a cut is made only
+where its text is in that file (the cuts of the one-thread binary search
+apply to a tree that still has it, unpacked with ``git archive``), and the
+copies time the same grid.  ``--probe-variants`` adds copies of the first
+package whose probe kernel has other numbers: a spec
+``[L<levels>][T<threads>][C<ctas per SM>][W<loops>]``, such as ``L10`` or
+``L10T512C1``, sets ``PROBE_LEVELS``, ``PROBE_THREADS``,
+``PROBE_CTAS_PER_SM`` (the narrow grid) and ``PROBE_WIDE_FROM`` (``W0``:
+always the wide grid; ``W99999``: never) in its ``csrc/hash_probe.cu``;
+they are right and time the same grid.
+
 Prints one JSON object: for every copy, each metric's values over the
 rounds.
 """
@@ -38,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -65,23 +86,111 @@ PROBES = {
 }
 
 
-def make_probe(name: str, src: str) -> str:
-    """A copy of the package under ``src`` with probe ``name`` applied;
-    returns the copy's ``src``."""
+# Cut-down copies of the one-thread binary search of ``csrc/hash_probe.cu``
+# (one thread per query, the grid of one query per thread): name -> (old,
+# new) replacements.  The table cuts stage the keys that the first L levels
+# of the search visit (2^L - 1, breadth-first) in shared memory, descend
+# them, and finish with the binary search over the H / 2^L wide range left.
+_PROBE_OLD_LOOP = (
+    "        long long lo = 0, hi = h;\n"
+    "        for (int s = 0; s < steps; ++s) {")
+_PROBE_STEP = "    const long long step = (long long)gridDim.x * blockDim.x;"
+
+
+def _table_descent(lv: int) -> str:
+    return f"""        int k = 1;
+#pragma unroll
+        for (int s = 0; s < {lv}; ++s) k = 2 * k + (tab[k] < q);
+        const long long c = k - {1 << lv};
+        long long lo = c ? ((c * h) >> {lv}) + 1 : 0;
+        long long hi = c < {(1 << lv) - 1} ? (((c + 1) * h) >> {lv}) + 1 : h;
+        const int steps2 = 64 - __clzll(hi - lo);
+        for (int s = 0; s < steps2; ++s) {{"""
+
+
+def _table_stage(lv: int) -> str:
+    return f"""    __shared__ K tab[{1 << lv}];
+    for (int k = threadIdx.x + 1; k < {1 << lv}; k += blockDim.x) {{
+        const int lev = 31 - __clz(k);
+        const long long j = ((long long)(2 * (k - (1 << lev)) + 1)
+                             << ({lv - 1} - lev)) - 1;
+        tab[k] = hay[((j + 1) * h) >> {lv}];
+    }}
+    __syncthreads();
+""" + _PROBE_STEP
+
+
+_NO_SCAN = [
+    ("        for (int j = 0; j < PROBE_LANES; ++j) {\n"
+     "            const int tj",
+     "        for (int j = 0; j < 0; ++j) {\n"
+     "            const int tj"),
+    ("        for (int j = 0; j < PROBE_LANES; ++j) {\n"
+     "            const K qj",
+     "        for (int j = 0; j < 0; ++j) {\n"
+     "            const K qj")]
+PROBE_CUTS = {
+    # load the query, write a flag, no search: the floor of this grid
+    "cut_no_search": [
+        ("for (int s = 0; s < steps; ++s) {",
+         "for (int s = 0; s < 0; ++s) {"),
+        ("out[i] = (lo < h && hay[lo < h - 1 ? lo : h - 1] == q) ? 1 : 0;",
+         "out[i] = q == (K)0;")],
+    # the top 12 levels from a shared table staged by every CTA
+    "cut_table12": [(_PROBE_STEP, _table_stage(12)),
+                    (_PROBE_OLD_LOOP, _table_descent(12))],
+    # the same with one CTA per SM, each looping over its queries
+    "cut_table12_1cta": [
+        (_PROBE_STEP, _table_stage(12)),
+        (_PROBE_OLD_LOOP, _table_descent(12)),
+        ("grid_for(n, PROBE_THREADS)",
+         "(grid_for(n, PROBE_THREADS) < 132u ? grid_for(n, PROBE_THREADS)"
+         " : 132u)")],
+    # the shared descent and the short search with no staging: the table
+    # holds whatever shared memory held, and the queries search whatever
+    # range that sends them to
+    "cut_table12_unstaged": [
+        (_PROBE_STEP, "    __shared__ K tab[4096];\n" + _PROBE_STEP),
+        (_PROBE_OLD_LOOP, _table_descent(12))],
+    # the top 8 levels from a table staged by every CTA
+    "cut_table8": [(_PROBE_STEP, _table_stage(8)),
+                   (_PROBE_OLD_LOOP, _table_descent(8))],
+    # the line-head kernel without its 8-lane line scan
+    "cut_heads_no_scan": _NO_SCAN,
+    # the line-head kernel with its table only: no search, no line scan
+    "cut_heads_table_only": _NO_SCAN + [
+        ("        for (int s = 0; s < steps; ++s) {",
+         "        for (int s = 0; s < 0; ++s) {")],
+}
+
+
+def make_probe(name: str, src: str, source: str = "bitonic_sort.cu",
+               cuts=None) -> str | None:
+    """A copy of the package under ``src`` with probe ``name`` applied to
+    ``csrc/<source>``; returns the copy's ``src``.  With ``cuts`` given
+    (``PROBE_CUTS``), returns None where a text to replace is not in the
+    file exactly once; otherwise that is an error."""
+    edits = (cuts or PROBES)[name]
+    text = open(os.path.join(src, "repro_torch", "kernels", "csrc",
+                             source)).read()
+    for old, new in edits:
+        if isinstance(old, re.Pattern):
+            text, count = old.subn(new, text)
+        else:
+            count = text.count(old)
+            text = text.replace(old, new)
+        if count != 1:
+            if cuts is not None:
+                return None
+            raise SystemExit(f"probe {name}: the text to replace is not "
+                             f"in {source} exactly once: {old!r}")
     dst = os.path.join(PROBE_ROOT, name, "src")
     shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
     shutil.copytree(os.path.join(src, "repro_torch"),
                     os.path.join(dst, "repro_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = os.path.join(dst, "repro_torch", "kernels", "csrc",
-                      "bitonic_sort.cu")
-    text = open(cu).read()
-    for old, new in PROBES[name]:
-        if text.count(old) != 1:
-            raise SystemExit(f"probe {name}: the text to replace is not "
-                             f"in {cu} exactly once: {old!r}")
-        text = text.replace(old, new)
-    with open(cu, "w") as f:
+    with open(os.path.join(dst, "repro_torch", "kernels", "csrc", source),
+              "w") as f:
         f.write(text)
     return dst
 
@@ -103,6 +212,58 @@ def time_tiles(smoke, torch, np) -> dict:
         out[f"tile_ms {tag}"] = smoke.time_ms(
             lambda: BS.bitonic_sort_tiles(keys, pos, tile))
     return out
+
+
+_VARIANT = re.compile(r"(?:L(\d+))?(?:T(\d+))?(?:C(\d+))?(?:W(\d+))?")
+
+
+def variant_cuts(spec: str) -> list:
+    """The ``make_probe`` edits of ``--probe-variants`` spec ``spec``."""
+    m = _VARIANT.fullmatch(spec)
+    if not spec or not m:
+        raise SystemExit(f"compare_port: bad probe variant {spec!r}")
+    names = ("PROBE_LEVELS", "PROBE_THREADS", "PROBE_CTAS_PER_SM",
+             "PROBE_WIDE_FROM")
+    return [(re.compile(rf"#define {name} \d+"), f"#define {name} {val}")
+            for name, val in zip(names, m.groups()) if val is not None]
+
+
+def time_probe(smoke, torch, np) -> dict:
+    from repro_torch.kernels import hash_probe as HP
+    from repro_torch.kernels import ref
+    out = {}
+    for shape, got in smoke.probe_grid(HP, ref,
+                                       np.random.default_rng(3)).items():
+        out[f"probe_mismatches {shape}"] = got["mismatches"]
+        out[f"probe_device_ms {shape}"] = got["device_ms"]
+        out[f"probe_ms {shape}"] = got["ms"]
+    return out
+
+
+def time_probe_main(smoke, torch) -> dict:
+    """The probe at the largest call LUBM-L's ``materialize`` makes on the
+    card (the main path's own queries and haystack): device time, time
+    per call, and what the inputs look like."""
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import LUBM_L, lubm_facts
+    from repro_torch.kernels import bitonic_sort as BS
+    from repro_torch.kernels import hash_probe as HP
+    from repro_torch.kernels import unique_mask as UM
+    kb = EngineKB(LUBM_L, lubm_facts(n_univ=smoke.LUBM_UNIV))
+    with smoke.ShapeLog(BS, UM, HP) as shapes:
+        materialize(kb, mode="tg")
+    q, hay = (a.clone() for a in shapes.largest["probe_sorted"][1])
+    pad = torch.iinfo(q.dtype).max
+    flags = HP.probe_sorted(q, hay)
+    return {
+        "probe_main_shape": [q.numel(), hay.numel(), str(q.dtype)],
+        "probe_main_queries_sorted": bool((q[1:] >= q[:-1]).all()),
+        "probe_main_pad_share": [float((q == pad).float().mean()),
+                                 float((hay == pad).float().mean())],
+        "probe_main_found_share": float(flags.float().mean()),
+        "probe_main_device_ms": smoke.device_ms(
+            lambda: HP.probe_sorted(q, hay)),
+        "probe_main_ms": smoke.time_ms(lambda: HP.probe_sorted(q, hay))}
 
 
 def latency_us(torch, fn, reps: int = 50) -> float:
@@ -221,8 +382,8 @@ def time_materialize(smoke, torch, reps: int) -> dict:
     return out
 
 
-def worker(src: str, tiles: bool, sort: bool, mat: bool,
-           reps: int) -> dict:
+def worker(src: str, tiles: bool, sort: bool, mat: bool, probe: bool,
+           probe_main: bool, reps: int) -> dict:
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(src))
@@ -238,6 +399,10 @@ def worker(src: str, tiles: bool, sort: bool, mat: bool,
         out.update(time_sort(smoke, torch, np))
     if mat:
         out.update(time_materialize(smoke, torch, reps))
+    if probe:
+        out.update(time_probe(smoke, torch, np))
+    if probe_main:
+        out.update(time_probe_main(smoke, torch))
     return out
 
 
@@ -248,6 +413,10 @@ def main() -> int:
     ap.add_argument("--sort", action="store_true")
     ap.add_argument("--materialize", action="store_true")
     ap.add_argument("--probes", action="store_true")
+    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--probe-main", action="store_true")
+    ap.add_argument("--probe-cuts", action="store_true")
+    ap.add_argument("--probe-variants", default="")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out")
@@ -255,7 +424,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.tiles, args.sort,
-                                args.materialize, args.reps)))
+                                args.materialize, args.probe,
+                                args.probe_main, args.reps)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -263,20 +433,38 @@ def main() -> int:
     copies = [c.split("=", 1) for c in args.copies]
     if not copies or any(len(c) != 2 for c in copies):
         raise SystemExit("compare_port: give copies as NAME=SRC")
-    jobs = [(name, src, args.tiles, args.sort, args.materialize)
+    jobs = [(name, src, args.tiles, args.sort, args.materialize, args.probe)
             for name, src in copies]
     if args.probes:
-        jobs += [(p, make_probe(p, copies[0][1]), True, False, False)
+        jobs += [(p, make_probe(p, copies[0][1]), True, False, False, False)
                  for p in PROBES]
+    if args.probe_cuts:
+        for p in PROBE_CUTS:
+            dst = make_probe(p, copies[0][1], "hash_probe.cu", PROBE_CUTS)
+            if dst is None:
+                print(f"{p}: not in {copies[0][0]}'s hash_probe.cu, "
+                      "not made", flush=True)
+            else:
+                jobs.append((p, dst, False, False, False, True))
+    for spec in filter(None, args.probe_variants.split(",")):
+        cuts = {spec: variant_cuts(spec)}
+        dst = make_probe(spec, copies[0][1], "hash_probe.cu", cuts)
+        if dst is None:
+            raise SystemExit(f"compare_port: {spec}: no such numbers in "
+                             "hash_probe.cu")
+        jobs.append((spec, dst, False, False, False, True))
     order = []
     for r in range(args.rounds):
         order += jobs if r % 2 == 0 else jobs[::-1]
     results = {}
-    for name, src, tiles, sort, mat in order:
+    for name, src, tiles, sort, mat, probe in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", src,
                "--reps", str(args.reps)]
         cmd += ["--tiles"] * tiles + ["--sort"] * sort
-        cmd += ["--materialize"] * mat
+        cmd += ["--materialize"] * mat + ["--probe"] * probe
+        # a cut's wrong flags would keep LUBM-L's fixpoint from closing
+        cmd += ["--probe-main"] * (probe and args.probe_main
+                                   and name not in PROBE_CUTS)
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode:
             raise SystemExit(f"compare_port: {name} failed:\n{res.stdout}"

@@ -39,7 +39,7 @@ SIGNATURES = {
     "rt_sort_tiles": [_I, _P, _P, _P, _P, _L, _I, _P],
     "rt_merge_pairs": [_I, _P, _P, _P, _P, _L, _L, _P, _P],
     "rt_unique_mask": [_I, _P, _P, _L, _I, _P],
-    "rt_probe_sorted": [_I, _P, _P, _P, _L, _L, _I, _P],
+    "rt_probe_sorted": [_I, _P, _P, _P, _L, _L, _P],
 }
 
 _LIB = None

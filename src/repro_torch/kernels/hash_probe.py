@@ -2,18 +2,20 @@
 wrapper over ``csrc/hash_probe.cu``.
 
 Replaces the Pallas kernel ``probe_sorted`` (``src/repro/kernels/
-hash_probe.py``, body ``_probe_kernel``).
+hash_probe.py``, body ``_probe_kernel``), which copies the whole haystack
+into one VMEM block per grid step.
 
-Bound on the card: the latency of ceil(log2(H+1)) dependent loads per
-query, rather than bytes, at the engine's shapes.  One thread per query
-runs the reference's branch-free binary search; the haystack stays in
-device memory, where L2 serves the search tree's upper levels to every
-query, instead of being copied whole into one fast-memory block as on the
-TPU.
+Bound on the card: the dependent loads of each query's search that miss
+L1, the lines a warp's loads touch, and the instructions per query, not
+bytes.  So the kernel searches the heads of the haystack's 128-byte lines
+instead of its keys: the top levels from a table in shared memory that
+each CTA of a persistent grid stages once (8 levels, or 12 when a CTA
+answers many queries), the rest by one thread per query in device memory;
+then 8 lanes read the query's line whole, 16 bytes each, and vote with a
+ballot.  One launch per call; ``csrc/hash_probe.cu`` has the design and
+PERF.md its measurements.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -46,9 +48,8 @@ def probe_sorted(queries: torch.Tensor, hay_sorted: torch.Tensor
     n, h = queries.shape[0], hay_sorted.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=queries.device)
     if n:
-        steps = max(1, math.ceil(math.log2(h + 1)))
         build.launch("rt_probe_sorted", queries.device,
                      build.KEY_CODES[queries.dtype], queries.data_ptr(),
-                     hay_sorted.data_ptr(), out.data_ptr(), n, h, steps)
+                     hay_sorted.data_ptr(), out.data_ptr(), n, h)
         LAUNCHES["probe_sorted"] += 1
     return out

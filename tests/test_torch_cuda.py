@@ -130,3 +130,90 @@ def test_merge_every_width_class(card, dt, case):
             mk, mv = BS.bitonic_merge_pairs(keys, pos, width)
             wk, wv = ref.merge_pairs_ref(keys, pos, width)
             assert torch.equal(mk, wk) and torch.equal(mv, wv), (width, n)
+
+
+def probe_inputs(kind, nq, nh, dt, seed):
+    """(queries, sorted haystack) on the card, made with numpy: "distinct"
+    keys (every 7th query PAD), "runs" of one key (the longest over the
+    middle of the haystack), a "pad_tail" of a third of the haystack,
+    "all_pad", or every query "below" the first key / "above" the last."""
+    rng = np.random.default_rng(seed)
+    pad = torch.iinfo(dt).max
+    hi = min(4 * nh, pad - 64)  # room for "below" to shift it up
+    if kind == "all_pad":
+        hay = np.full(nh, pad)
+    elif kind == "runs":
+        hay = np.sort(rng.integers(0, 8, nh))
+        hay[nh // 2 - nh // 8: nh // 2 + nh // 8 + 1] = 9
+        hay = np.sort(hay)
+    elif kind == "distinct" and nh <= hi:
+        hay = np.sort(rng.choice(hi, nh, replace=False))
+    else:
+        hay = np.sort(rng.integers(0, hi, nh))
+        if kind == "pad_tail":
+            hay[nh - nh // 3:] = pad
+    if kind == "below":
+        hay = hay + 64
+        q = np.minimum(rng.integers(-64, 64, nq), hay[0] - 1)
+    elif kind == "above":
+        q = np.minimum(int(hay[-1]) + 1 + rng.integers(0, 64, nq), pad)
+    elif kind == "runs":
+        q = rng.integers(-1, 12, nq)
+    else:
+        q = rng.integers(0, hi, nq)
+        q[::7] = pad
+    return (torch.from_numpy(q).to(dt).cuda(),
+            torch.from_numpy(hay).to(dt).cuda())
+
+
+PROBE_KINDS = ["distinct", "runs", "pad_tail", "all_pad", "below", "above"]
+
+
+def probe_edge_sizes(dt):
+    """Haystack lengths around the kernel's table: 2^L - 1, 2^L and
+    2^L + 1 keys for L = 8, 10, 12; one key; and, since the table holds
+    heads of 128-byte lines (u keys each), 2^L - 1, 2^L and 2^L + 1 heads
+    for L = 8 (narrow grid) and 12 (wide), each a key short, exact and a
+    key over."""
+    u = 128 // torch.tensor([], dtype=dt).element_size()
+    sizes = [(1 << lv) + d for lv in (8, 10, 12) for d in (-1, 0, 1)]
+    sizes += [((1 << lv) + d) * u + e for lv in (8, 12)
+              for d in (-1, 0, 1) for e in (-1, 0, 1)]
+    return [1] + sizes
+
+
+@pytest.mark.parametrize("kind", PROBE_KINDS)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_probe_table_edges(card, dt, kind):
+    """Every ``probe_edge_sizes`` length, with few queries (the narrow
+    grid) and with 2^19 (the wide grid)."""
+    for nq in (1 << 12, 1 << 19):
+        for nh in probe_edge_sizes(dt):
+            q, hay = probe_inputs(kind, nq, nh, dt, nh)
+            assert torch.equal(KO.probe_sorted(q, hay),
+                               ref.probe_sorted_ref(q, hay)), (nq, nh)
+    for nh in (9 << 12, (81 << 12) + 5, (729 << 12) - 1):
+        q, hay = probe_inputs(kind, 1 << 14, nh, dt, nh)
+        assert torch.equal(KO.probe_sorted(q, hay),
+                           ref.probe_sorted_ref(q, hay)), nh
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_probe_haystack_view_inside_a_line(card, dt):
+    """The kernel reads 128-byte lines of memory: a haystack that starts
+    or ends inside one (a view at an offset) reads only its own keys."""
+    q, hay = probe_inputs("distinct", 1 << 14, 5000, dt, 5)
+    for off in (1, 3, 7, 9):
+        for view in (hay[off:], hay[:-off], hay[off:off + 40]):
+            assert torch.equal(KO.probe_sorted(q, view),
+                               ref.probe_sorted_ref(q, view)), off
+
+
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64])
+def test_probe_past_l2(card, dt):
+    """A haystack of 2^24 keys (64 MB at int32, 128 MB at int64) does not
+    fit the 50 MB L2."""
+    for kind in ("distinct", "pad_tail"):
+        q, hay = probe_inputs(kind, 1 << 20, 1 << 24, dt, 24)
+        assert torch.equal(KO.probe_sorted(q, hay),
+                           ref.probe_sorted_ref(q, hay)), kind

@@ -155,14 +155,69 @@ def test_unique_mask_ref_uses_the_dtype_pad():
         RK.unique_mask(jnp.asarray(data))))
 
 
+def probe_case(rng, kind, nq, nh, dt):
+    """(queries, sorted haystack) of one probe case.  "unique": distinct
+    keys, every 7th query PAD; "distinct": the same with exactly nh keys;
+    "runs": runs of one key, the longest over
+    the middle of the haystack (the root of the card's search table) and
+    others wherever the rounding puts them; "pad_tail": a third of the
+    haystack PAD, every 7th query PAD; "all_pad": the haystack all PAD;
+    "below" / "above": every query below the first key / above the last."""
+    p = pad(dt)
+    if kind == "all_pad":
+        hay = np.full(nh, p, dt)
+    elif kind == "runs":
+        hay = np.sort(rng.integers(0, 8, nh)).astype(dt)
+        hay[nh // 2 - nh // 8: nh // 2 + nh // 8 + 1] = 9
+        hay = np.sort(hay)
+    elif kind == "distinct":
+        hay = np.sort(rng.choice(4 * nh, nh, replace=False)).astype(dt)
+    else:
+        hay = np.sort(rand(rng, nh, dt, hi=4 * nh))
+        if kind == "unique":
+            hay = np.unique(hay)
+        if kind == "pad_tail":
+            hay[nh - nh // 3:] = p
+    if kind == "below":
+        hay = hay + dt(64)
+        q = rng.integers(-64, 64, nq).astype(dt)
+        q = np.minimum(q, hay[0] - 1).astype(dt)
+    elif kind == "above":
+        q = (int(hay[-1]) + 1 + rng.integers(0, 64, nq)).astype(dt)
+    elif kind == "runs":
+        q = rng.integers(-1, 12, nq).astype(dt)
+    else:
+        q = rand(rng, nq, dt, hi=4 * nh)
+        q[::7] = p
+    return q, hay
+
+
+# Shapes a search with its top levels in a table can get wrong: 2^L - 1,
+# 2^L and 2^L + 1 keys for L = 8, 10 and 12, runs of one key across a
+# table node, PAD tails, one key (the card's own table edges, in line
+# heads, are held against the plain version in test_torch_cuda.py).
+PROBE_CASES = [
+    pytest.param(nq, nh, "unique", id=f"{nq}-{nh}")
+    for nq, nh in [(64, 16), (256, 100), (1024, 1), (512, 511), (1, 1),
+                   (100, 37), (300, 3)]
+] + [
+    pytest.param(nq, nh, kind, id=f"{kind}-{nq}-{nh}")
+    for kind, nq, nh in [
+        ("distinct", 128, 255), ("distinct", 128, 257),
+        ("distinct", 128, 1023), ("distinct", 128, 1025),
+        ("distinct", 256, 4095), ("distinct", 256, 4096),
+        ("distinct", 256, 4097), ("runs", 512, 4095), ("runs", 512, 4096),
+        ("runs", 512, 4097), ("runs", 300, 1), ("pad_tail", 256, 4097),
+        ("pad_tail", 100, 255), ("all_pad", 128, 4096), ("all_pad", 64, 1),
+        ("below", 256, 4097), ("below", 64, 1), ("above", 256, 4097),
+        ("above", 64, 1)]
+]
+
+
 @pytest.mark.parametrize("dt", ALL_DTYPES)
-@pytest.mark.parametrize("nq,nh", [(64, 16), (256, 100), (1024, 1),
-                                   (512, 511), (1, 1), (100, 37), (300, 3)])
-def test_probe(nq, nh, dt):
-    rng = np.random.default_rng(nq + nh)
-    hay = np.unique(rand(rng, nh, dt, hi=4 * nh))
-    q = rand(rng, nq, dt, hi=4 * nh)
-    q[::7] = pad(dt)
+@pytest.mark.parametrize("nq,nh,kind", PROBE_CASES)
+def test_probe(nq, nh, kind, dt):
+    q, hay = probe_case(np.random.default_rng(nq + nh), kind, nq, nh, dt)
     got = TK.probe_sorted(torch.from_numpy(q), torch.from_numpy(hay)).numpy()
     np.testing.assert_array_equal(got, np.isin(q, hay).astype(np.int32))
     if dt in REF_DTYPES:

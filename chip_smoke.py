@@ -29,23 +29,41 @@ Phases, each fatal on failure:
    beside ``torch.sort(keys, stable=True)``; and time the probe over a
    grid of shapes (``PROBE_GRID``), haystacks past L2 included;
 6. profile warm re-runs of both materializations: wall time, the device's
-   busy time, and the kernels that took it.
+   busy time, and the kernels that took it;
+7. maintain both materialized KBs incrementally on the card
+   (``materialize_delta``): on LUBM-L delete 1,000 base facts drawn from
+   every base predicate, reinsert them, then delete 500 others and insert
+   the first 500 again in one call; on wide TC delete 1,000 edges from the
+   middle of chains and reinsert them.  Every call is held against the
+   same call on the CPU (rows, MatStats with ``extra``, SORT_STATS,
+   count_pulls) and against a from-scratch materialization of the updated
+   base on the card (fact sets); every kernel must launch in the card's
+   delta calls;
+8. crash recovery on the card, each run a child process building its own
+   KB with ``REPRO_CKPT_DIR`` set: LUBM-L ``n_univ=2000`` killed by
+   ``crash:round=2`` (SIGKILL) and resumed to phase 3's result; at
+   ``n_univ=200``, ``sigterm:round=2`` (exit 143, then resume), and
+   ``ckpt_corrupt:tag=2`` with ``crash:round=2`` (the resume falls back to
+   round 1); each save's time and bytes are printed.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
-a ``{"probe_grid": {...}}`` line, a ``{"kernels": [...]}`` line,
+a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
+``{"recovery": [...]}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
-otherwise.
+otherwise.  ``chip_smoke.py --child ...`` is phase 8's child process.
 """
 from __future__ import annotations
 
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -614,6 +632,285 @@ def sort_breakdown(BS, KO, rng) -> dict:
             device_ms(lib)}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: incremental maintenance at full size
+# ---------------------------------------------------------------------------
+DELTA_LUBM = 1000       # base facts deleted and reinserted (then 500 + 500)
+DELTA_TC = 1000         # mid-chain edges deleted and reinserted
+DRILL_UNIV = 200        # LUBM-L size of the SIGTERM and corruption drills
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def draw_facts(facts, n, rng, taken=()):
+    """``n`` distinct base facts outside ``taken``, drawn with ``rng`` from
+    every predicate in turn (each predicate's facts in a random order), so
+    that the arity-1 predicates are among them."""
+    taken = set(taken)
+    pools = {}
+    for f in dict.fromkeys(facts):
+        if f not in taken:
+            pools.setdefault(f.pred, []).append(f)
+    order = {p: rng.permutation(len(pools[p])) for p in sorted(pools)}
+    out, k = [], 0
+    while len(out) < n and any(k < len(v) for v in order.values()):
+        for p, perm in order.items():
+            if k < len(perm) and len(out) < n:
+                out.append(pools[p][perm[k]])
+        k += 1
+    return out
+
+
+def id_translation(src, dst) -> np.ndarray:
+    """``dst``'s id of each of ``src``'s term ids (dense from 0)."""
+    out = np.full(len(src), -1, np.int64)
+    if src._from_id:
+        ids = np.fromiter(src._from_id.keys(), np.int64, len(src._from_id))
+        terms = np.empty((len(ids), 1), dtype=object)
+        terms[:, 0] = list(src._from_id.values())
+        out[ids] = dst.encode_columns(terms)[:, 0]
+    if len(src._dec_ids):
+        out[src._dec_ids] = dst.encode_columns(
+            src._dec_vals.reshape(-1, 1))[:, 0]
+    return out
+
+
+def same_facts(kb, other) -> bool:
+    """Whether two KBs hold the same facts, whatever their dictionaries'
+    ids (no nulls: LUBM-L and TC have no existentials)."""
+    from repro_torch.engine.relation import host_order
+    trans = id_translation(other.dict, kb.dict)
+    for p in set(kb.rels) | set(other.rels):
+        a = kb.rels[p].np_rows() if p in kb.rels else np.zeros((0, 1))
+        b = other.rels[p].np_rows() if p in other.rels else np.zeros((0, 1))
+        if len(a) != len(b):
+            return False
+        if not len(a):
+            continue
+        b = trans[b].astype(a.dtype)
+        if not np.array_equal(a[host_order(a)], b[host_order(b)]):
+            return False
+    return True
+
+
+def counters_of(st):
+    from repro_torch.engine import ops
+    return ((st.rounds, st.triggers, st.derived, st.mode, dict(st.extra)),
+            dict(vars(ops.SORT_STATS)), ops.HOST_SYNC_STATS.count_pulls)
+
+
+def delta_call(kb, ins, dels):
+    """One ``materialize_delta`` call: its counters, wall s and launches."""
+    from repro_torch.engine import ops
+    from repro_torch.kernels import ops as KO
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    sync()
+    KO.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = kb.materialize_delta(insertions=ins, deletions=dels)
+    sync()
+    wall = time.perf_counter() - t0
+    return counters_of(st), wall, KO.launch_counts()
+
+
+def run_deltas(name, kb_g, kb_c, calls, scratch):
+    """Each of ``calls`` ((label, insertions, deletions, base after)) on the
+    card's KB and the CPU's, held against each other and against
+    ``scratch(base after)``, a from-scratch KB materialized on the card.
+    Returns one record per call and the card's launches summed."""
+    from repro_torch import materialize
+    out, launches = [], {k: 0 for k in KERNELS}
+    for label, ins, dels, base in calls:
+        cnt_g, wall_g, lc = delta_call(kb_g, ins, dels)
+        for k in launches:
+            launches[k] += lc[k]
+        cnt_c, wall_c, _ = delta_call(kb_c, ins, dels)
+        if cnt_g != cnt_c:
+            fail(f"{name} {label}: card {cnt_g} vs cpu {cnt_c}")
+        rg, rc = rows_by_pred(kb_g), rows_by_pred(kb_c)
+        if rg.keys() != rc.keys() or any(
+                not np.array_equal(rg[p], rc[p]) for p in rg):
+            fail(f"{name} {label}: fact rows differ between cuda and cpu")
+        sync()
+        t0 = time.perf_counter()
+        kb_s = scratch(base)
+        sync()
+        t1 = time.perf_counter()
+        materialize(kb_s, mode="tg")
+        sync()
+        t2 = time.perf_counter()
+        if not same_facts(kb_g, kb_s):
+            fail(f"{name} {label}: maintained facts differ from a "
+                 "from-scratch materialization of the updated base")
+        rec = {"workload": name, "call": label, "inserted": len(ins),
+               "deleted": len(dels), "stats": cnt_g[0][:3],
+               "extra": cnt_g[0][4], "count_pulls": cnt_g[2],
+               "delta_ms": wall_g * 1e3, "cpu_delta_ms": wall_c * 1e3,
+               "scratch_ingest_ms": (t1 - t0) * 1e3,
+               "scratch_materialize_ms": (t2 - t1) * 1e3,
+               "facts": kb_g.num_facts(), "launches": lc}
+        log(f"[delta] {json.dumps(rec)}")
+        out.append(rec)
+        del kb_s
+    return out, launches
+
+
+def lubm_delta_calls(facts, rng):
+    """Delete 1,000 base facts, reinsert them, then one mixed call that
+    deletes 500 others and inserts the first 500 again; each with the base
+    it leaves."""
+    first = draw_facts(facts, DELTA_LUBM, rng)
+    second = draw_facts(facts, DELTA_LUBM // 2, rng, taken=first)
+    gone1, gone2 = set(first), set(second)
+    after1 = [f for f in facts if f not in gone1]
+    after3 = [f for f in facts if f not in gone2]
+    return [(f"delete {len(first)}", [], first, after1),
+            (f"reinsert {len(first)}", first, [], facts),
+            (f"delete {len(second)} + insert {DELTA_LUBM // 2}",
+             first[:DELTA_LUBM // 2], second, after3)]
+
+
+def tc_delta_calls(rng, chain_len=4):
+    """Delete 1,000 edges from the middle of distinct chains (offset 1 or
+    2 of 4, so each deletion cascades through the closure), then reinsert
+    them; each with the base edges it leaves."""
+    from repro_torch.core.terms import Atom
+    from repro_torch.data.kb_sources import tc_wide_chunks
+    edges = np.concatenate([c for _, c in tc_wide_chunks(TC_CHAINS)])
+    chains = rng.choice(TC_CHAINS, DELTA_TC, replace=False)
+    idx = chains * chain_len + rng.integers(1, chain_len - 1, DELTA_TC)
+    dels = [Atom("e", (int(a), int(b))) for a, b in edges[idx]]
+    keep = np.ones(len(edges), bool)
+    keep[idx] = False
+    return [(f"delete {DELTA_TC} mid-chain edges", [], dels, edges[keep]),
+            (f"reinsert {DELTA_TC}", dels, [], edges)]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: crash recovery on the card, in child processes
+# ---------------------------------------------------------------------------
+def child(out_path: str, n_univ: int) -> int:
+    """One checkpointed LUBM-L materialization on the card (the settings
+    come from the environment): prints a JSON line per save (the device to
+    host pull and the write, timed apart, and the bytes written) and, if
+    it survives, its counters; writes its rows to ``out_path``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import LUBM_L, lubm_facts
+    from repro_torch.engine import materialize as M
+    from repro_torch.engine import recovery
+    from repro_torch.kernels import ops as KO
+    host_state, save = M._host_state, recovery.EngineCheckpointer._save
+    pulled = {}
+
+    def timed_host_state(kb, deltas):
+        t0 = time.perf_counter()
+        out = host_state(kb, deltas)
+        pulled["s"] = time.perf_counter() - t0
+        return out
+
+    def timed_save(self, st, shards, done):
+        t0 = time.perf_counter()
+        save(self, st, shards, done)
+        path = self.mgr._path(st.rounds)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        log(json.dumps({"save": st.rounds, "host_state_ms":
+                        pulled.pop("s") * 1e3, "write_ms":
+                        (time.perf_counter() - t0) * 1e3, "bytes": size}))
+
+    M._host_state = timed_host_state
+    recovery.EngineCheckpointer._save = timed_save
+    kb = EngineKB(LUBM_L, lubm_facts(n_univ=n_univ), device="cuda")
+    KO.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    st = materialize(kb, mode="tg")
+    sync()
+    wall = time.perf_counter() - t0
+    np.savez(out_path, **rows_by_pred(kb))
+    log(json.dumps({"stats": [st.rounds, st.triggers, st.derived],
+                    "extra": st.extra, "materialize_ms": wall * 1e3,
+                    "launches": KO.launch_counts()}))
+    return 0
+
+
+def run_child(ckpt_dir, n_univ, fault):
+    """Phase 8's child with checkpoints in ``ckpt_dir`` and ``fault`` as
+    ``REPRO_FAULT_SPEC``: (exit code, its JSON lines, its rows or None)."""
+    out = os.path.join(ckpt_dir, "rows.npz")
+    if os.path.exists(out):
+        os.remove(out)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    env.update(REPRO_CKPT_DIR=os.path.join(ckpt_dir, "ckpt"),
+               REPRO_CKPT_KEEP="3")
+    if fault:
+        env["REPRO_FAULT_SPEC"] = fault
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--child", out, str(n_univ)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x) for x in res.stdout.splitlines()
+             if x.startswith("{")]
+    rows = None
+    if os.path.exists(out):
+        with np.load(out) as z:
+            rows = {k: z[k] for k in z.files}
+    return res.returncode, lines, rows, res.stderr[-3000:]
+
+
+def recovery_drills(tmp, lubm_rows, lubm_stats):
+    """Phase 8: (label, n_univ, fault, expected exit code, expected
+    resumed round).  Each faulted run is resumed by a fresh child, which
+    must reach the uninterrupted run's rows and counters."""
+    import signal
+    from repro_torch import EngineKB, materialize
+    from repro_torch.data.kb_sources import LUBM_L, lubm_facts
+    from repro_torch.engine import recovery
+    small = EngineKB(LUBM_L, lubm_facts(n_univ=DRILL_UNIV), device="cuda")
+    st = materialize(small, mode="tg")
+    want = {LUBM_UNIV: (lubm_rows, lubm_stats),
+            DRILL_UNIV: (rows_by_pred(small),
+                         [st.rounds, st.triggers, st.derived])}
+    del small
+    drills = [("crash", LUBM_UNIV, "crash:round=2", -signal.SIGKILL, 2),
+              ("sigterm", DRILL_UNIV, "sigterm:round=2", 143, 3),
+              ("ckpt_corrupt", DRILL_UNIV, "ckpt_corrupt:tag=2,crash:round=2",
+               -signal.SIGKILL, 1)]
+    out = []
+    for label, n_univ, fault, rc_want, resumed_want in drills:
+        d = os.path.join(tmp, label)
+        os.makedirs(d)
+        rc, lines, _, err = run_child(d, n_univ, fault)
+        if rc != rc_want:
+            fail(f"{label}: exit {rc}, expected {rc_want}: {err}")
+        loaded = recovery.RecoveryManager(os.path.join(d, "ckpt")).load()
+        if loaded is None or loaded[0]["rounds"] != resumed_want:
+            fail(f"{label}: no valid checkpoint of round {resumed_want}")
+        rc2, lines2, rows, err = run_child(d, n_univ, "")
+        if rc2 != 0 or rows is None:
+            fail(f"{label}: the resume failed ({rc2}): {err}")
+        res = lines2[-1]
+        want_rows, want_stats = want[n_univ]
+        if res["extra"].get("resumed_rounds") != resumed_want or \
+                res["stats"] != list(want_stats):
+            fail(f"{label}: resumed {res}, expected round {resumed_want} "
+                 f"and {want_stats}")
+        if rows.keys() != want_rows.keys() or any(
+                not np.array_equal(rows[p], want_rows[p]) for p in rows):
+            fail(f"{label}: the resumed facts differ")
+        rec = {"drill": label, "n_univ": n_univ, "fault": fault,
+               "exit": rc, "saves": [x for x in lines if "save" in x],
+               "resume": res,
+               "resume_saves": [x for x in lines2 if "save" in x]}
+        log(f"[recovery] {json.dumps(rec)}")
+        out.append(rec)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -667,13 +964,15 @@ def main() -> int:
                 (st_c.rounds, st_c.triggers, st_c.derived, cnt_c):
             fail(f"lubm stats differ: cuda {st_g} {cnt_g} vs cpu {st_c} "
                  f"{cnt_c}")
-        rg, rc = rows_by_pred(kb_g), rows_by_pred(kb_c)
-        if rg.keys() != rc.keys() or any(
-                not np.array_equal(rg[p], rc[p]) for p in rg):
+        lubm_rows, rc = rows_by_pred(kb_g), rows_by_pred(kb_c)
+        if lubm_rows.keys() != rc.keys() or any(
+                not np.array_equal(lubm_rows[p], rc[p]) for p in lubm_rows):
             fail("lubm fact rows differ between cuda and cpu")
         if any(launches_lubm[k] == 0 for k in KERNELS):
             fail(f"a kernel was never launched on LUBM-L: {launches_lubm}")
-        del kb_g, kb_c
+        lubm_kbs, lubm_stats = (kb_g, kb_c), [st_g.rounds, st_g.triggers,
+                                              st_g.derived]
+        del rc
 
         # 4. tc_wide at scale, card against CPU
         KO.reset_launch_counts()
@@ -704,6 +1003,7 @@ def main() -> int:
         if rg.keys() != rc.keys() or any(
                 not np.array_equal(rg[p], rc[p]) for p in rg):
             fail("tc_wide fact rows differ between cuda and cpu")
+        tc_kbs = (kb, kb_c)
         del kb, kb_c, rg, rc
 
     # 5. times at the main path's largest shapes
@@ -723,9 +1023,45 @@ def main() -> int:
     kb = EngineKB.from_stream(TC, tc_wide_chunks(TC_CHAINS))
     prof.append(profile_run("tc_wide materialize", lambda: materialize(kb)))
     del kb
+
+    # 7. deltas at full size: card against CPU and against from-scratch
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    deltas, launches_delta = run_deltas(
+        "lubm_l", *lubm_kbs, lubm_delta_calls(facts, rng),
+        lambda base: EngineKB(LUBM_L, base))
+    tc_deltas, tc_launches = run_deltas(
+        "tc_wide", *tc_kbs, tc_delta_calls(rng),
+        lambda base: EngineKB.from_stream(TC, [("e", base)]))
+    deltas += tc_deltas
+    launches_delta = {k: launches_delta[k] + tc_launches[k]
+                      for k in KERNELS}
+    del lubm_kbs, tc_kbs
+    log(f"[delta] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_delta}")
+    if any(launches_delta[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched by the delta calls: "
+             f"{launches_delta}")
+    for r in rows:
+        r["launches_delta"] = launches_delta[r["name"]]
+        r["launches"] += launches_delta[r["name"]]
+
+    # 8. crash recovery on the card, in child processes
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        drills = recovery_drills(tmp, lubm_rows, lubm_stats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[recovery] {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
+    print(json.dumps({"deltas": deltas}))
+    print(json.dumps({"recovery": drills}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -735,4 +1071,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

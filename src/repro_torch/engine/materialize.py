@@ -15,8 +15,13 @@ scan rows), the paper's hardware-independent work metric.
 
 The KB lives on one device.  ``EngineKB`` defaults to ``cuda`` and raises
 when no card is present; the caller asks for the CPU with
-``device="cpu"``.  The reference's other executors and modes are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``device="cpu"``.  With ``REPRO_CKPT_DIR`` set, every round is a durable
+checkpoint boundary and a later run resumes from the newest valid one
+(``repro_torch.engine.recovery``); ``REPRO_FAULT_SPEC`` faults fire at the
+same boundaries.  ``EngineKB.materialize_delta`` maintains a materialized
+KB under inserts and deletes (``repro_torch.engine.incremental``).  The
+reference's other executors and modes are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.terms import Atom, Program, Rule, Var, is_var
-from repro_torch.engine import ops
+from repro_torch.engine import ops, recovery
 from repro_torch.engine.dictionary import Dictionary
 from repro_torch.engine.relation import (Relation, host_order, lex_order,
                                          resolve_device)
@@ -36,16 +41,21 @@ from repro_torch.engine.relation import (Relation, host_order, lex_order,
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: {})"
 
 
+def check_fused_flag() -> None:
+    """Refuse ``REPRO_FUSED=1`` rather than silently running the two-phase
+    executor in place of the fused one."""
+    if os.environ.get("REPRO_FUSED", "0") == "1":
+        raise NotImplementedError(
+            "REPRO_FUSED=1: " + _NOT_PORTED.format("plan.py + fused.py"))
+
+
 def _check_ported_flags() -> None:
     """Refuse the reference's executor flags rather than silently running
     the two-phase executor in their place."""
-    for flag, item in (("REPRO_FUSED", "plan.py + fused.py"),
-                       ("REPRO_DIST", "distributed.py")):
-        if os.environ.get(flag, "0") == "1":
-            raise NotImplementedError(f"{flag}=1: " + _NOT_PORTED.format(item))
-    if os.environ.get("REPRO_CKPT_DIR"):
-        raise NotImplementedError("REPRO_CKPT_DIR: checkpoints are "
-                                  + _NOT_PORTED.format("recovery.py"))
+    check_fused_flag()
+    if os.environ.get("REPRO_DIST", "0") == "1":
+        raise NotImplementedError(
+            "REPRO_DIST=1: " + _NOT_PORTED.format("distributed.py"))
 
 
 # ---------------------------------------------------------------------------
@@ -184,14 +194,22 @@ class EngineKB:
         return kb
 
     def host_state(self) -> tuple:
-        """(payload, dict_state): the inverse of ``from_host_state``, with
-        rows lexsorted on the host."""
-        payload = {}
-        for kind, rels in (("store", self.rels), ("base", self.base)):
-            for p, rel in rels.items():
-                rows = rel.np_rows()
-                payload[f"{kind}__{p}"] = rows[host_order(rows)]
-        return payload, self.dict.state_dict()
+        """(payload, dict_state): the inverse of ``from_host_state``, in
+        the layout of a checkpoint without live deltas."""
+        return _host_state(self, {})[0], self.dict.state_dict()
+
+    def materialize_delta(self, insertions=(), deletions=(), **kw):
+        """Incrementally maintain an already-materialized store: see
+        :func:`repro_torch.engine.incremental.materialize_delta`."""
+        from repro_torch.engine.incremental import materialize_delta
+        return materialize_delta(self, insertions=insertions,
+                                 deletions=deletions, **kw)
+
+    def insert_facts(self, facts, **kw):
+        return self.materialize_delta(insertions=facts, **kw)
+
+    def delete_facts(self, facts, **kw):
+        return self.materialize_delta(deletions=facts, **kw)
 
     def decode_facts(self):
         out = set()
@@ -341,8 +359,8 @@ def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
     level filtering) | tg (tg_noopt + Def. 23 prefilter).
 
     ``tg_linear``, ``backend="dist"`` and the ``REPRO_FUSED`` /
-    ``REPRO_DIST`` / ``REPRO_CKPT_DIR`` settings are not ported yet and
-    raise ``NotImplementedError``."""
+    ``REPRO_DIST`` settings are not ported yet and raise
+    ``NotImplementedError``."""
     if mode == "tg_linear":
         raise NotImplementedError(
             "mode='tg_linear': " + _NOT_PORTED.format("tg_linear + core/eg.py"))
@@ -358,21 +376,29 @@ def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
     st = MatStats(mode=mode)
     deltas: Dict[str, Relation] = {}
 
-    # round 1: extensional rules over B
-    derived_round = defaultdict(list)
-    for rule in kb.program.extensional_rules():
-        inputs = [kb.rels[a.pred] for a in rule.body]
-        head, trg = execute_rule(kb, rule, inputs)
-        st.triggers += trg
-        if per_rule:
-            _absorb(kb, st, rule.head.pred, head, deltas)
-        elif head.count:
-            derived_round[rule.head.pred].append(head)
-    st.rounds = 1
-    if not per_rule:
-        _absorb_round(kb, st, derived_round, deltas)
+    ck = recovery.EngineCheckpointer(kb, mode, "two-phase")
+    resume = ck.maybe_resume(st)
+    if resume is not None:
+        st.extra["resumed"] = True
+        for p, rows in resume.items():
+            deltas[p] = kb._relation(rows, sorted_by=lex_order(rows.shape[1]))
+    else:
+        # round 1: extensional rules over B
+        derived_round = defaultdict(list)
+        for rule in kb.program.extensional_rules():
+            inputs = [kb.rels[a.pred] for a in rule.body]
+            head, trg = execute_rule(kb, rule, inputs)
+            st.triggers += trg
+            if per_rule:
+                _absorb(kb, st, rule.head.pred, head, deltas)
+            elif head.count:
+                derived_round[rule.head.pred].append(head)
+        st.rounds = 1
+        if not per_rule:
+            _absorb_round(kb, st, derived_round, deltas)
+        ck.boundary(st, lambda: _host_state(kb, deltas))
 
-    _fixpoint_rounds(kb, st, deltas, mode, max_rounds, per_rule=per_rule)
+    _fixpoint_rounds(kb, st, deltas, mode, max_rounds, ck, per_rule=per_rule)
     return st
 
 
@@ -416,10 +442,31 @@ def _absorb(kb, st, pred, rel, collector):
         collector[pred] = fresh
 
 
-def _fixpoint_rounds(kb, st, deltas, mode, max_rounds,
+def _host_state(kb, deltas):
+    """Single-shard checkpoint payload: trimmed host rows, in the engine's
+    lexsort order, of every store / live delta / base relation.  Rows are
+    read with ``np_rows``, so a save adds no ``count_pulls``."""
+    def rows_of(rel):
+        rows = rel.np_rows()
+        if len(rows) and not rel.is_lexsorted:
+            rows = rows[host_order(rows)]
+        return rows
+    payload = {}
+    for p, rel in kb.rels.items():
+        payload[f"store__{p}"] = rows_of(rel)
+    for p, rel in deltas.items():
+        if rel.count:
+            payload[f"delta__{p}"] = rows_of(rel)
+    for p, rel in kb.base.items():
+        payload[f"base__{p}"] = rows_of(rel)
+    return [payload]
+
+
+def _fixpoint_rounds(kb, st, deltas, mode, max_rounds, ck,
                      per_rule: bool = False):
     """Semi-naive fixpoint rounds, continuing from ``st.rounds`` with the
-    given live ``deltas`` (pred -> Relation)."""
+    given live ``deltas`` (pred -> Relation); each committed round is a
+    boundary of the checkpointer ``ck``."""
     program = kb.program
     int_rules = list(program.intensional_rules())
     ext_rules = list(program.extensional_rules())
@@ -450,4 +497,6 @@ def _fixpoint_rounds(kb, st, deltas, mode, max_rounds,
         if not per_rule:
             _absorb_round(kb, st, derived_round, new_deltas)
         deltas = new_deltas
+        ck.boundary(st, lambda: _host_state(kb, deltas))
+    ck.final(st, lambda: _host_state(kb, deltas))
     return st

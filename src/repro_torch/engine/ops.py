@@ -27,7 +27,8 @@ Kernels
 -------
 The single-key sort (``keysort_core``, and through it single-column
 lexsorts), the dedup mask (``dedup_mask_core``) and the single-column
-membership probe (``anti_keep_core``) go through ``repro_torch.kernels.ops``,
+membership probe (``anti_keep_core``, behind the antijoin and
+``merge_diff``) go through ``repro_torch.kernels.ops``,
 with the same gating as the reference with its kernels on.  On a CUDA tensor
 that launches the hand kernels; on a CPU tensor their plain versions run.
 Multi-column lexsorts and the merge-union / join searches are torch ops, as
@@ -298,6 +299,17 @@ def anti_keep_core(data, hay_sorted, cols):
     return valid & ~found
 
 
+def merge_diff_core(A, B_sorted, out_cap: int):
+    """Sorted set-difference: rows of block A (lexsorted) minus rows of
+    lexsorted block B, compacted into a fresh (out_cap, ar) PAD block.
+    Every A row is one membership probe into B (the probe kernel on
+    arity-1 pow-2 blocks), no sort pass, and compaction keeps A's order.
+    Returns (out, n_kept); overflow is ``n_kept > out_cap``, checked by
+    the caller."""
+    keep = anti_keep_core(A, B_sorted, tuple(range(A.shape[1])))
+    return compact_core(A, keep, out_cap), keep.sum()
+
+
 def merge_core(A, B, na: int, nb: int):
     """Merge sorted block B (bcap rows, nb valid) into sorted block A
     (out_cap rows, na valid); ties place the A run first.  Only B is
@@ -494,5 +506,24 @@ def merge_union(a: Relation, b: Relation) -> Relation:
     n = a.count + b.count
     out_cap = next_pow2(n)
     out = merge_core(fit_rows(a.data, out_cap), b.data, a.count, b.count)
+    SORT_STATS.merges += 1
+    return Relation(out, n, lex_order(a.arity))
+
+
+def merge_diff(a: Relation, b: Relation) -> Relation:
+    """Incremental sorted set-difference ``a - b`` (full rows), the deletion
+    counterpart of ``merge_union``: both sides are lexsorted first (free when
+    they carry the marker), every ``a`` row is one membership probe into
+    ``b``, and the surviving rows compact in place; the store is never
+    re-sorted.  The output keeps ``a``'s capacity (the difference always
+    fits) and is lexsorted and marked."""
+    if a.arity != b.arity:
+        raise ValueError(f"merge_diff of arities {a.arity} and {b.arity}")
+    if a.count == 0 or b.count == 0:
+        return lexsort_rows(a)
+    a = lexsort_rows(a)
+    b = lexsort_rows(b)
+    out, n = merge_diff_core(a.data, b.data, a.capacity)
+    n = _pull(n)
     SORT_STATS.merges += 1
     return Relation(out, n, lex_order(a.arity))

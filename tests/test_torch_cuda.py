@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.data.kb_sources import LUBM_L, lubm_facts
-from repro_torch.engine import ops
+from repro_torch.engine import faultinject, ops, recovery
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import host_order
 from repro_torch.kernels import bitonic_sort as BS
@@ -217,3 +217,83 @@ def test_probe_past_l2(card, dt):
         q, hay = probe_inputs(kind, 1 << 20, 1 << 24, dt, 24)
         assert torch.equal(KO.probe_sorted(q, hay),
                            ref.probe_sorted_ref(q, hay)), kind
+
+
+def _counted_rows(kb, st):
+    rows = {p: r.np_rows() for p, r in kb.rels.items()}
+    return ({p: v[host_order(v)] for p, v in rows.items()},
+            (st.rounds, st.triggers, st.derived, st.mode, dict(st.extra),
+             dict(vars(ops.SORT_STATS)), ops.HOST_SYNC_STATS.count_pulls))
+
+
+def test_delta_on_the_card_matches_the_cpu(card):
+    """Delete base facts of every predicate (the arity-1 ones reach the
+    probe through ``merge_diff``), reinsert them, then a mixed call: the
+    card's rows and counters equal the CPU's after every call, and every
+    kernel launches on the card."""
+    facts = lubm_facts(n_univ=4)
+    rng = np.random.default_rng(0)
+    by_pred = {}
+    for f in facts:
+        by_pred.setdefault(f.pred, []).append(f)
+    dels = [fs[i] for _, fs in sorted(by_pred.items())
+            for i in rng.choice(len(fs), min(len(fs), 8), replace=False)]
+    calls = [([], dels), (dels, []), (dels[:10], dels[10:30])]
+    results = []
+    for device in (card, "cpu"):
+        kb = EngineKB(LUBM_L, facts, device=device)
+        materialize(kb, mode="tg")
+        KO.reset_launch_counts()
+        steps = []
+        for ins, gone in calls:
+            ops.SORT_STATS.reset()
+            ops.HOST_SYNC_STATS.reset()
+            st = kb.materialize_delta(insertions=ins, deletions=gone)
+            steps.append(_counted_rows(kb, st))
+        results.append((steps, KO.launch_counts()))
+    (steps_g, lg), (steps_c, lc) = results
+    for (rg, sg), (rc, sc) in zip(steps_g, steps_c):
+        assert sg == sc
+        assert rg.keys() == rc.keys()
+        assert all(np.array_equal(rg[p], rc[p]) for p in rg)
+    assert all(v > 0 for v in lg.values()), lg
+    assert set(lc.values()) == {0}
+
+
+def test_checkpoint_resume_on_the_card_matches_the_cpu(card, tmp_path,
+                                                       monkeypatch):
+    """A checkpointed run on the card writes the CPU run's files; rewound
+    to round 2, it resumes on the card to the CPU run's rows and
+    counters."""
+    monkeypatch.delenv("REPRO_FAULT_SPEC", raising=False)
+    monkeypatch.setattr(faultinject, "_CACHE", {})
+    monkeypatch.setenv("REPRO_CKPT_KEEP", "100")
+    facts = lubm_facts(n_univ=4)
+    out = []
+    for i, device in enumerate((card, "cpu")):
+        d = tmp_path / f"run{i}"
+        monkeypatch.setenv("REPRO_CKPT_DIR", str(d))
+        ops.SORT_STATS.reset()
+        ops.HOST_SYNC_STATS.reset()
+        kb = EngineKB(LUBM_L, facts, device=device)
+        full = _counted_rows(kb, materialize(kb, mode="tg"))
+        mgr = recovery.RecoveryManager(str(d), keep=100)
+        shards = [mgr._load_one(t, None)[1] for t in mgr.tags()]
+        for t in mgr.tags()[2:]:
+            mgr.drop(t)
+        ops.SORT_STATS.reset()
+        ops.HOST_SYNC_STATS.reset()
+        kb = EngineKB(LUBM_L, facts, device=device)
+        st = materialize(kb, mode="tg")
+        assert st.extra["resumed_rounds"] == 2
+        assert kb.rels["subOrg"].data.device.type == torch.device(
+            device).type
+        out.append((full, _counted_rows(kb, st), shards))
+    (full_g, res_g, sh_g), (full_c, res_c, sh_c) = out
+    for (rg, sg), (rc, sc) in ((full_g, full_c), (res_g, res_c)):
+        assert sg == sc
+        assert all(np.array_equal(rg[p], rc[p]) for p in rc)
+    assert len(sh_g) == len(sh_c)
+    for a, b in zip(sh_g, sh_c):
+        assert a[0].keys() == b[0].keys()
+        assert all(np.array_equal(a[0][k], b[0][k]) for k in a[0])

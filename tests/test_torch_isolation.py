@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.terms import Atom
 from repro_torch.data.kb_sources import LUBM_L, lubm_facts
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import Relation
@@ -64,19 +65,29 @@ def test_relation_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_FUSED",
-                                 "REPRO_DIST", "REPRO_CKPT_DIR"])
-def test_unported_features_raise(how, monkeypatch, tmp_path):
+                                 "REPRO_DIST", "REPRO_FUSED-materialize_delta",
+                                 "REPRO_FUSED-insert_facts",
+                                 "REPRO_FUSED-delete_facts"])
+def test_unported_features_raise(how, monkeypatch):
+    """The fused executor (``REPRO_FUSED=1``) is refused by ``materialize``
+    and by every delta entry point, which the reference would hand to it."""
     kb = EngineKB(LUBM_L, lubm_facts(n_univ=1), device="cpu")
     kw = {}
+    call = materialize
     if how == "tg_linear":
         kw["mode"] = "tg_linear"
     elif how == "dist":
         kw["backend"] = "dist"
     else:
-        monkeypatch.setenv(how, str(tmp_path) if how == "REPRO_CKPT_DIR"
-                           else "1")
+        flag, _, entry = how.partition("-")
+        monkeypatch.setenv(flag, "1")
+        if entry:
+            call = getattr(EngineKB, entry)
+            kw = ({"insertions": [Atom("Student", ("s",))]}
+                  if entry == "materialize_delta"
+                  else {"facts": [Atom("Student", ("s",))]})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        materialize(kb, **kw)
+        call(kb, **kw)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -45,10 +45,29 @@ Phases, each fatal on failure:
    ``n_univ=200``, ``sigterm:round=2`` (exit 143, then resume), and
    ``ckpt_corrupt:tag=2`` with ``crash:round=2`` (the resume falls back to
    round 1); each save's time and bytes are printed.
+9. the fused executor (``REPRO_FUSED=1``) on the card: LUBM-L
+   ``n_univ=2000``, wide TC at 1,000,000 chains and the deep chain of
+   ``benchmarks/bench_fused.py`` (``tc_facts(192, 16)``, its generator
+   copied here), each cold and then warm on a fresh ``EngineKB``.  Every
+   run is held against the fused run on the CPU from the same capacity
+   memo (rows, MatStats with ``extra``, SORT_STATS, count_pulls,
+   fused_pulls, fused_retries) and against the two-phase run on the card
+   (rows, rounds, triggers, derived); it must be fused and not spilled,
+   the warm run must retry nothing, and the deep chain must give 128
+   rounds, 39,546 triggers, 36,314 derived and 21 fused pulls warm.  A
+   third run is profiled (wall and device busy time).  Then phase 7's
+   first two calls on each of LUBM-L and wide TC (delete, reinsert) run
+   under ``REPRO_FUSED=1`` on the warm fused KBs, on the card and on the
+   CPU (equal counters and rows), and must equal the same calls on the
+   two-phase executor in rows, triggers, derived and ``extra``; one of
+   them must hand off to the fused executor and run rounds there.  The
+   device loop (``csrc/graph_loop.cu``) is held against the host loop on
+   the deep chain's longest phase and timed.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
-``{"recovery": [...]}`` line, a ``{"kernels": [...]}`` line,
+``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
+``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -85,6 +104,10 @@ KERNELS = {
     "probe_sorted": ("src/repro_torch/kernels/csrc/hash_probe.cu",
                      "src/repro/kernels/hash_probe.py:45"),
 }
+# the device loop of the fused executor: it replaces the reference's
+# ``lax.while_loop`` over whole rounds, not a Pallas kernel
+GRAPH_LOOP = ("src/repro_torch/kernels/csrc/graph_loop.cu",
+              "src/repro/engine/fused.py:250")
 
 
 def log(*args):
@@ -812,9 +835,9 @@ def child(out_path: str, n_univ: int) -> int:
         pulled["s"] = time.perf_counter() - t0
         return out
 
-    def timed_save(self, st, shards, done):
+    def timed_save(self, st, shards, caps, done):
         t0 = time.perf_counter()
-        save(self, st, shards, done)
+        save(self, st, shards, caps, done)
         path = self.mgr._path(st.rounds)
         size = sum(os.path.getsize(os.path.join(path, f))
                    for f in os.listdir(path))
@@ -910,6 +933,229 @@ def recovery_drills(tmp, lubm_rows, lubm_stats):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the fused executor at full size
+# ---------------------------------------------------------------------------
+# benchmarks/bench_datalog.py's TC layout: the recursive join is on the
+# primary column of both the delta and the edge store
+DEEP_TC = "e(X, Y) -> T(Y, X)\nT(Y, X) & e(Y, Z) -> T(Z, X)"
+DEEP_COUNTS = (128, 39546, 36314)   # rounds, triggers, derived
+DEEP_PULLS = 21                     # BENCH_tc.json, tc.fused (warm)
+
+
+def deep_tc_facts(n_chain: int = 192, n_extra: int = 16, seed: int = 0):
+    """benchmarks/bench_datalog.py's ``tc_facts``: a long path (deep
+    fixpoint, many rounds) plus random chords; ``benchmarks/bench_fused.py``
+    runs it at (192, 16)."""
+    from repro_torch.core.terms import parse_atom
+    rng = np.random.default_rng(seed)
+    edges = [(i, i + 1) for i in range(n_chain)]
+    edges += [tuple(e) for e in rng.integers(0, n_chain, (n_extra, 2))]
+    return [parse_atom(f"e(v{a}, v{b})") for a, b in edges]
+
+
+def fused_run(make_kb, device):
+    """One ``materialize(kb, "tg")`` of a fresh KB under the current
+    ``REPRO_FUSED``: the KB, its counters (counted from before the KB is
+    built, as the reference's benchmarks count), the materialize wall s,
+    and on the card the launches, captures, device loops and peak bytes."""
+    from repro_torch import materialize
+    from repro_torch.engine import fused, ops
+    from repro_torch.kernels import graph_loop as GL
+    from repro_torch.kernels import ops as KO
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    kb = make_kb(device)
+    KO.reset_launch_counts()
+    GL.LAUNCHES["graph_loop"] = 0
+    fused.CAPTURES.update(round=0, fixpoint=0)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = materialize(kb, mode="tg")
+    sync()
+    wall = time.perf_counter() - t0
+    h = ops.HOST_SYNC_STATS
+    rec = {"rounds": st.rounds, "triggers": st.triggers,
+           "derived": st.derived, "extra": dict(st.extra),
+           "count_pulls": h.count_pulls, "fused_pulls": h.fused_pulls,
+           "fused_retries": h.fused_retries,
+           "sort_stats": dict(vars(ops.SORT_STATS))}
+    card = {"wall_ms": wall * 1e3, "launches": KO.launch_counts(),
+            "captures": dict(fused.CAPTURES),
+            "graph_loops": GL.LAUNCHES["graph_loop"],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    return kb, rec, card
+
+
+def same_rows(a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[p], b[p])
+                                        for p in a)
+
+
+class LoopRecorder:
+    """Keeps a copy of the inputs of every device-loop call (for the loop's
+    check against the host loop) while it is entered."""
+
+    def __init__(self):
+        from repro_torch.engine import fused
+        self.fused = fused
+        self.calls = []
+
+    def __enter__(self):
+        call = self.orig = self.fused._DeviceLoop.__call__
+        calls = self.calls
+
+        def recorded(loop, consts, state, enter=True):
+            calls.append((loop, [c.clone() for c in consts],
+                          [x.clone() for x in state], enter))
+            return call(loop, consts, state, enter)
+        self.fused._DeviceLoop.__call__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.fused._DeviceLoop.__call__ = self.orig
+
+
+def graph_loop_row(calls, launches):
+    """The device loop against its plain version (the host loop) on the
+    recorded phase with the most iterations: final states, the time of one
+    call (staging copies and the launch, CUDA events), the host loop's time,
+    and the bound: the constants read and the state read and written once
+    each, over the memory rate."""
+    from repro_torch.engine import fused
+    best = None
+    for loop, consts, state, enter in calls:
+        if not enter:
+            continue
+        out = loop(consts, state, True)
+        n = (len(out) - 1) // 2
+        iters = int(out[-1][2 * n + 3].item())
+        if best is None or iters > best[0]:
+            best = (iters, loop, consts, state)
+    if best is None:
+        fail("the deep chain entered no device loop")
+    iters, loop, consts, state = best
+    got = [t.clone() for t in loop(consts, state, True)]
+    plain = fused._HostLoop(loop.step, loop.cond)
+    want = plain(consts, state)
+    pairs = list(zip(got, want))
+    mism = sum(mismatches(g, w) for g, w in pairs)
+    if mism:
+        fail(f"graph_loop: the device loop disagrees with the host loop "
+             f"({mism} values)")
+    nbytes = sum(c.numel() * c.element_size() for c in consts) + 2 * sum(
+        x.numel() * x.element_size() for x in state)
+    return {"name": "graph_loop", "route": "cuda", "source": GRAPH_LOOP[0],
+            "replaces": GRAPH_LOOP[1], "launches": launches,
+            "mismatches": mism, "max_abs_err": max_abs_err(pairs),
+            "ms": time_ms(lambda: loop(consts, state, True)),
+            "plain_ms": time_ms(lambda: plain(consts, state), reps=3,
+                                runs=3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": {"iterations": iters, "state": [list(x.shape)
+                                                     for x in state]}}
+
+
+def fused_workload(name, make_kb, checks):
+    """Phase 9 for one workload: two-phase on the card, fused cold and warm
+    on the card and on the CPU from the same capacity memo, a profiled
+    third run.  Returns (record, summed card launches, device loops, and
+    the KBs: warm fused on the card and on the CPU, two-phase on the
+    card)."""
+    from repro_torch import materialize
+    from repro_torch.engine import fused, plan
+    os.environ["REPRO_FUSED"] = "0"
+    kb_t, two, two_card = fused_run(make_kb, "cuda")
+    rows_t = rows_by_pred(kb_t)
+    os.environ["REPRO_FUSED"] = "1"
+    fused.clear_programs()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        plan._CAP_MEMO.clear()
+        runs[device] = [fused_run(make_kb, device) for _ in range(2)]
+        log(f"[fused] {name} {device}: {[r[1:] for r in runs[device]]}")
+    launches = {k: 0 for k in KERNELS}
+    loops = 0
+    for (kb_g, rg, cg), (kb_c, rc, _) in zip(runs["cuda"], runs["cpu"]):
+        if rg != rc:
+            fail(f"{name} fused: card {rg} vs cpu {rc}")
+        if rg["extra"] != {"fused": True}:
+            fail(f"{name}: not fused, or spilled: {rg['extra']}")
+        rows = rows_by_pred(kb_g)
+        if not same_rows(rows, rows_by_pred(kb_c)):
+            fail(f"{name} fused: rows differ between card and cpu")
+        if not same_rows(rows, rows_t) or [rg[k] for k in (
+                "rounds", "triggers", "derived")] != [two[k] for k in (
+                "rounds", "triggers", "derived")]:
+            fail(f"{name}: fused {rg} differs from two-phase {two}")
+        for k in KERNELS:
+            launches[k] += cg["launches"][k]
+        loops += cg["graph_loops"]
+    cold, warm = (r[1] for r in runs["cuda"])
+    if warm["fused_retries"]:
+        fail(f"{name}: the warm fused run retried {warm['fused_retries']}")
+    checks(cold, warm)
+    kb = make_kb("cuda")
+    prof = profile_run(f"{name} fused warm", lambda: materialize(kb))
+    rec = {"workload": name, "two_phase": {**two, **two_card},
+           "cold": {**cold, **runs["cuda"][0][2]},
+           "warm": {**warm, **runs["cuda"][1][2]},
+           "profiled_warm": prof,
+           "cpu_wall_ms": [r[2]["wall_ms"] for r in runs["cpu"]]}
+    log(f"[fused] {json.dumps(rec)}")
+    kbs = (runs["cuda"][1][0], runs["cpu"][1][0], kb_t)
+    del kb, runs
+    return rec, launches, loops, kbs
+
+
+def fused_deltas(name, kbs, calls):
+    """Delta calls under ``REPRO_FUSED=1`` on the warm fused KBs of the card
+    and of the CPU, and without it on the two-phase KB of the card.  The
+    card's fused call must equal the CPU's (rows, MatStats with ``extra``,
+    SORT_STATS, count_pulls, fused_pulls, fused_retries) and the two-phase
+    call in rows, triggers, derived and ``extra`` (without the ``fused``
+    flag).  Rounds may differ there: a hand-off counts no round in which
+    no rule has a live body atom, as on the reference.  Returns the records
+    and whether a call handed off to the fused executor and ran rounds
+    there (pulled from it)."""
+    from repro_torch.engine import ops, plan
+    kb_f, kb_c, kb_t = kbs
+    out, handed = [], False
+    for label, ins, dels, _ in calls:
+        got = []
+        memo = dict(plan._CAP_MEMO)
+        for kb, flag in ((kb_f, "1"), (kb_c, "1"), (kb_t, "0")):
+            os.environ["REPRO_FUSED"] = flag
+            if kb is kb_c:      # the CPU plans from the card's memo
+                plan._CAP_MEMO.clear()
+                plan._CAP_MEMO.update(memo)
+            cnt, wall, lc = delta_call(kb, ins, dels)
+            got.append((cnt + (ops.HOST_SYNC_STATS.fused_pulls,
+                               ops.HOST_SYNC_STATS.fused_retries), wall, lc))
+        (cnt_f, wall_f, lc), (cnt_c, wall_c, _), (cnt_t, wall_t, _) = got
+        if cnt_f != cnt_c or not same_rows(rows_by_pred(kb_f),
+                                           rows_by_pred(kb_c)):
+            fail(f"{name} {label}: card {cnt_f} vs cpu {cnt_c}")
+        extra = dict(cnt_f[0][4])
+        flag = extra.pop("fused", False)
+        if (cnt_f[0][1:4], extra) != (cnt_t[0][1:4], cnt_t[0][4]):
+            fail(f"{name} {label}: fused {cnt_f} vs two-phase {cnt_t}")
+        if not same_rows(rows_by_pred(kb_f), rows_by_pred(kb_t)):
+            fail(f"{name} {label}: fused rows differ from two-phase")
+        handed |= bool(flag) and cnt_f[3] > 0
+        rec = {"workload": name, "call": label, "stats": cnt_f[0][:3],
+               "two_phase_stats": cnt_t[0][:3], "extra": cnt_f[0][4],
+               "count_pulls": cnt_f[2], "fused_pulls": cnt_f[3],
+               "fused_retries": cnt_f[4],
+               "two_phase_count_pulls": cnt_t[2],
+               "fused_delta_ms": wall_f * 1e3, "cpu_delta_ms": wall_c * 1e3,
+               "two_phase_delta_ms": wall_t * 1e3, "launches": lc}
+        log(f"[fused delta] {json.dumps(rec)}")
+        out.append(rec)
+    return out, handed
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1057,11 +1303,82 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[recovery] {time.perf_counter() - t0:.1f} s")
 
+    # 9. the fused executor at full size
+    t0 = time.perf_counter()
+    from repro_torch.core.terms import parse_program
+    from repro_torch.engine import fused
+    deep_prog, deep_facts = parse_program(DEEP_TC), deep_tc_facts()
+
+    def deep_checks(cold, warm):
+        for r in (cold, warm):
+            if (r["rounds"], r["triggers"], r["derived"]) != DEEP_COUNTS:
+                fail(f"deep chain: {r}, expected {DEEP_COUNTS}")
+        if warm["fused_pulls"] != DEEP_PULLS:
+            fail(f"deep chain: {warm['fused_pulls']} fused pulls warm, "
+                 f"expected {DEEP_PULLS}")
+
+    workloads = [
+        ("lubm_l", lambda d: EngineKB(LUBM_L, facts, device=d), None),
+        ("tc_wide", lambda d: EngineKB.from_stream(
+            TC, tc_wide_chunks(TC_CHAINS), device=d), None),
+        ("deep_chain", lambda d: EngineKB(deep_prog, deep_facts, device=d),
+         deep_checks)]
+    fused_recs, fused_kbs = [], {}
+    launches_fused = {k: 0 for k in KERNELS}
+    loops_fused = 0
+    prev_flag = os.environ.get("REPRO_FUSED")
+    try:
+        for name, make_kb, checks in workloads:
+            rec, lc, loops, kbs = fused_workload(
+                name, make_kb, checks or (lambda cold, warm: None))
+            fused_recs.append(rec)
+            for k in KERNELS:
+                launches_fused[k] += lc[k]
+            loops_fused += loops
+            if name == "deep_chain":
+                # one more run, untimed, keeps each device loop's inputs
+                with LoopRecorder() as recorder:
+                    materialize(make_kb("cuda"), mode="tg")
+                loop_row = graph_loop_row(recorder.calls, loops_fused)
+                del recorder
+            else:
+                fused_kbs[name] = kbs
+            fused.clear_programs()
+            torch.cuda.empty_cache()
+        fused_delta_recs, handed = fused_deltas(
+            "lubm_l", fused_kbs.pop("lubm_l"),
+            lubm_delta_calls(facts, np.random.default_rng(0))[:2])
+        more, handed_tc = fused_deltas(
+            "tc_wide", fused_kbs.pop("tc_wide"),
+            tc_delta_calls(np.random.default_rng(0)))
+        fused_delta_recs += more
+        if not (handed or handed_tc):
+            fail("no delta call under REPRO_FUSED=1 ran rounds on the "
+                 "fused executor")
+    finally:
+        if prev_flag is None:
+            os.environ.pop("REPRO_FUSED", None)
+        else:
+            os.environ["REPRO_FUSED"] = prev_flag
+    del fused_kbs
+    fused.clear_programs()
+    if any(launches_fused[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched by the fused runs: "
+             f"{launches_fused}")
+    for r in rows:
+        r["launches_fused"] = launches_fused[r["name"]]
+        r["launches"] += launches_fused[r["name"]]
+    rows.append(loop_row)
+    log(f"[fused] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_fused}; device loops {loops_fused}")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
     print(json.dumps({"deltas": deltas}))
     print(json.dumps({"recovery": drills}))
+    print(json.dumps({"fused": fused_recs,
+                      "fused_deltas": fused_delta_recs}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 own copy of ``repro.engine.faultinject``; keep the two in step).
 
 ``REPRO_FAULT_SPEC`` holds a comma-separated list of fault events; each
-event is ``kind[:field=value...]``.  The two-phase executor consults the
-injector at its round boundaries (after any due checkpoint save, so every
-injected crash lands on a consistent host-side state).
+event is ``kind[:field=value...]``.  The executors consult the injector at
+their round / phase boundaries (after any due checkpoint save, so every
+injected crash lands on a consistent host-side state), and the fused
+executor's capacity planner consults it when it is built.
 
 Supported events::
 
@@ -17,10 +18,12 @@ Supported events::
                            checkpoint at the next boundary and exits 143
     sleep:round=K:secs=S   straggler: sleep S seconds at every boundary
                            from round K on (default 0.01)
-    storm                  forced-overflow storm of a capacity planner; the
-                           port has no planner yet (its fused executor is
-                           ROADMAP Queue 1 item 1), so on the two-phase
-                           executor it is a no-op, as on the reference's
+    storm                  forced-overflow storm: the fused executor's
+                           capacity planner starts every delta / join guess
+                           at the floor, so every cold phase pays the full
+                           double-and-retry ladder (exercises RetryBudget
+                           and its CapacityError); the two-phase executor
+                           has no planner and ignores it
     ckpt_corrupt:tag=K:seed=S
                            flip one seeded byte in a payload file of the
                            first checkpoint written with tag >= K

@@ -11,11 +11,12 @@ Insertions — semi-naive from a seeded delta
 Inserted facts are absorbed into the sorted store with an incremental
 ``merge_union`` and become the FIRST delta of the semi-naive loop: every
 rule with a body atom over a live delta predicate re-fires against (delta
-at one position, full store elsewhere).  The loop is the two-phase one at
-delta-sized capacities.  The reference hands deep cascades to its fused
-executor under ``REPRO_FUSED=1``; the port has none yet (ROADMAP Queue 1
-item 1), so with that flag set a delta call raises before it touches the
-KB.
+at one position, full store elsewhere).  Shallow cascades run two-phase at
+delta-sized capacities; when a cascade runs past ``_FUSED_HANDOFF`` rounds
+and ``REPRO_FUSED=1`` with the program in the plannable fragment, the live
+deltas are handed to the fused executor
+(``materialize_fused(initial_deltas=...)``, with lean capacity guesses),
+as on the reference.
 
 Deletions — DRed (delete and re-derive)
 ---------------------------------------
@@ -50,8 +51,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.engine import ops
-from repro_torch.engine.materialize import (MatStats, check_fused_flag,
-                                            execute_rule)
+from repro_torch.engine.materialize import MatStats, execute_rule
 from repro_torch.engine.relation import Relation
 
 
@@ -126,17 +126,46 @@ def _round_heads(kb, st, deltas, prefilter_of, prefilter_mode="anti"):
 # ---------------------------------------------------------------------------
 # insertion side: semi-naive propagation from a seeded delta
 # ---------------------------------------------------------------------------
+# Small deltas run two-phase on purpose: the two-phase wrappers size their
+# buffers to the actual delta, while the fused round programs run at the
+# planned capacities.  Only a cascade that runs deep gains from the fused
+# executor's device loop, so propagation hands off after this many rounds.
+_FUSED_HANDOFF = 3
+
+
 def _propagate(kb, seeds: Dict[str, Relation], st: MatStats, mode: str,
                max_rounds: int) -> None:
-    """Run the two-phase semi-naive delta loop from ``seeds`` (already
-    absorbed into the store)."""
+    """Run the semi-naive delta loop from ``seeds`` (already absorbed into
+    the store).  Hands deep cascades off to the fused executor."""
     def prefilter_of(rule):
         return kb.rels.get(rule.head.pred) if mode == "tg" else None
 
     deltas = dict(seeds)
-    for _ in range(max_rounds):
+    fused_ok = ops.fused_enabled() and mode in ("tg", "tg_noopt")
+    for rounds in range(max_rounds):
         if not deltas:
             break
+        if fused_ok and rounds >= _FUSED_HANDOFF:
+            from repro_torch.engine.fused import materialize_fused
+            from repro_torch.engine.plan import CapacityError
+            try:
+                fst = materialize_fused(kb, mode=mode,
+                                        max_rounds=max_rounds - rounds,
+                                        initial_deltas=deltas, spill=False)
+            except CapacityError as e:
+                # retry budget exhausted before the handoff made progress:
+                # stay on the two-phase loop, whose buffers track the
+                # actual delta size
+                st.extra["spilled"] = str(e)
+                fst = None
+            if fst is not None:
+                st.rounds += fst.rounds
+                st.triggers += fst.triggers
+                st.derived += fst.derived
+                st.extra["propagated"] += fst.derived
+                st.extra["fused"] = True
+                return
+            fused_ok = False    # outside the plannable fragment
         derived_round = _round_heads(kb, st, deltas, prefilter_of)
         new_deltas: Dict[str, Relation] = {}
         for pred, rels in derived_round.items():
@@ -251,14 +280,13 @@ def materialize_delta(kb, insertions=(), deletions=(), mode: str = "tg",
     ``insertions`` and ``deletions`` (ground :class:`Atom` iterables).
 
     Deletions apply first (DRed over-deletion / rescue), then insertions
-    (semi-naive from the seeded delta) — a fact in both batches ends up
-    present.  ``mode`` controls the Def. 23 pre-restriction on the
-    insertion side exactly as in ``materialize`` (``tg`` = prefiltered).
-    ``REPRO_FUSED=1`` raises ``NotImplementedError`` before the KB is
-    touched."""
+    (semi-naive from the seeded delta; handed to the fused executor past
+    ``_FUSED_HANDOFF`` rounds under ``REPRO_FUSED=1``) — a fact in both
+    batches ends up present.  ``mode`` controls the Def. 23 pre-restriction
+    on the insertion side exactly as in ``materialize`` (``tg`` =
+    prefiltered)."""
     if mode not in ("seminaive", "tg", "tg_noopt"):
         raise ValueError(f"unknown mode {mode!r}")
-    check_fused_flag()
     st = MatStats(mode=f"delta[{mode}]")
     st.extra.update(delta=True, over_deleted=0, rescued=0, propagated=0)
     dels = _encode_facts(kb, deletions) if deletions else {}

@@ -19,9 +19,16 @@ when no card is present; the caller asks for the CPU with
 checkpoint boundary and a later run resumes from the newest valid one
 (``repro_torch.engine.recovery``); ``REPRO_FAULT_SPEC`` faults fire at the
 same boundaries.  ``EngineKB.materialize_delta`` maintains a materialized
-KB under inserts and deletes (``repro_torch.engine.incremental``).  The
-reference's other executors and modes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+KB under inserts and deletes (``repro_torch.engine.incremental``).
+
+With ``REPRO_FUSED=1``, the ``tg``/``tg_noopt`` modes route through the
+fused round executor (``repro_torch.engine.fused``): each round is one
+program, captured as a CUDA graph on the card, and linear-tail fixpoints
+run in one device loop.  Programs outside the fused fragment
+(existentials, disconnected bodies) run on the two-phase executor below,
+as on the reference; ``seminaive`` is never fused.  The reference's other
+executors and modes are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,18 +48,9 @@ from repro_torch.engine.relation import (Relation, host_order, lex_order,
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: {})"
 
 
-def check_fused_flag() -> None:
-    """Refuse ``REPRO_FUSED=1`` rather than silently running the two-phase
-    executor in place of the fused one."""
-    if os.environ.get("REPRO_FUSED", "0") == "1":
-        raise NotImplementedError(
-            "REPRO_FUSED=1: " + _NOT_PORTED.format("plan.py + fused.py"))
-
-
 def _check_ported_flags() -> None:
-    """Refuse the reference's executor flags rather than silently running
-    the two-phase executor in their place."""
-    check_fused_flag()
+    """Refuse the reference's sharded-executor flag rather than silently
+    running another executor in its place."""
     if os.environ.get("REPRO_DIST", "0") == "1":
         raise NotImplementedError(
             "REPRO_DIST=1: " + _NOT_PORTED.format("distributed.py"))
@@ -358,8 +356,9 @@ def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
     """mode: seminaive (VLog-like, per-rule filtering) | tg_noopt (TG round-
     level filtering) | tg (tg_noopt + Def. 23 prefilter).
 
-    ``tg_linear``, ``backend="dist"`` and the ``REPRO_FUSED`` /
-    ``REPRO_DIST`` settings are not ported yet and raise
+    ``REPRO_FUSED=1`` runs ``tg`` / ``tg_noopt`` on the fused executor
+    where the program is in its fragment.  ``tg_linear``,
+    ``backend="dist"`` and ``REPRO_DIST`` are not ported yet and raise
     ``NotImplementedError``."""
     if mode == "tg_linear":
         raise NotImplementedError(
@@ -372,6 +371,11 @@ def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
     if mode not in ("seminaive", "tg", "tg_noopt"):
         raise ValueError(f"unknown mode {mode!r}")
     _check_ported_flags()
+    if mode in ("tg", "tg_noopt") and ops.fused_enabled():
+        from repro_torch.engine.fused import materialize_fused
+        st = materialize_fused(kb, mode=mode, max_rounds=max_rounds)
+        if st is not None:      # None: outside the fused fragment, fall back
+            return st
     per_rule = mode == "seminaive"
     st = MatStats(mode=mode)
     deltas: Dict[str, Relation] = {}

@@ -7,8 +7,10 @@ sentinel and key widths off its input tensors.
 Execution contracts
 -------------------
 * **Cores** (``*_core``): plain functions on tensors, with no host
-  interaction.  They never choose capacities; output capacities are
-  arguments.
+  interaction: nothing in them synchronizes the host, so the fused
+  executor captures them in CUDA graphs.  They never choose capacities;
+  output capacities are arguments, and data-dependent counts (a join
+  total, a merge's valid rows) may be host ints or 0-d tensors.
 * **Two-phase host wrappers** (``dedup``/``filter_rows``/``sm_join``/
   ``antijoin``/...) over ``Relation`` values.  A data-dependent size takes a
   count pass, one blocking device->host pull of the count (``.item()``,
@@ -52,6 +54,12 @@ def sorted_store_enabled() -> bool:
     return os.environ.get("REPRO_SORTED_STORE", "1") != "0"
 
 
+def fused_enabled() -> bool:
+    """Route eligible materialization rounds through the fused executor
+    (``REPRO_FUSED=1``)."""
+    return os.environ.get("REPRO_FUSED", "0") == "1"
+
+
 @dataclass
 class SortStats:
     """Counts of sort passes performed / avoided."""
@@ -73,9 +81,10 @@ SORT_STATS = SortStats()
 @dataclass
 class HostSyncStats:
     """Blocking device->host synchronization points: each two-phase wrapper
-    pulls its count-pass result once (``count_pulls``).  The fused and
-    distributed counters of the reference stay 0 until those executors are
-    ported."""
+    pulls its count-pass result once (``count_pulls``); the fused executor
+    pulls one scalar bundle per round program and per fixpoint exit
+    (``fused_pulls``) and counts its overflow retries (``fused_retries``).
+    The distributed counters stay 0 until that executor is ported."""
     count_pulls: int = 0
     fused_pulls: int = 0
     fused_retries: int = 0
@@ -175,7 +184,9 @@ def compact_core(data, mask, out_cap: int):
 def project_core(data, cols):
     """Column gather; invalid (PAD) rows stay fully PAD."""
     valid = data[:, 0] != pad_of(data)
-    out = data[:, list(cols)]
+    # column slices, not a list index: that would copy the index to the
+    # device and synchronize the host
+    out = torch.stack([data[:, c] for c in cols], dim=1)
     return torch.where(valid[:, None], out, pad_of(data))
 
 
@@ -191,9 +202,10 @@ def join_count_core(ldata, rdata_sorted, lkey: int, rkey: int):
     return per.sum(), per, cum, lo
 
 
-def join_gather_core(ldata, rdata, per, cum, lo, total: int, out_cap: int):
+def join_gather_core(ldata, rdata, per, cum, lo, total, out_cap: int):
     """Materialize pass: emit [l cols..., r cols...] rows into a
-    (out_cap, lar+rar) block; rows past ``total`` are PAD."""
+    (out_cap, lar+rar) block; rows past ``total`` (a host int or a 0-d
+    tensor) are PAD."""
     lcap, rcap = ldata.shape[0], rdata.shape[0]
     t = torch.arange(out_cap, device=ldata.device)
     # left row for output t: last i with cum[i] <= t
@@ -310,12 +322,13 @@ def merge_diff_core(A, B_sorted, out_cap: int):
     return compact_core(A, keep, out_cap), keep.sum()
 
 
-def merge_core(A, B, na: int, nb: int):
+def merge_core(A, B, na, nb):
     """Merge sorted block B (bcap rows, nb valid) into sorted block A
-    (out_cap rows, na valid); ties place the A run first.  Only B is
-    binary-searched: output slot of B[i] = i + p_i where p_i = #{A lex<=
-    B[i]}, and output slot of A[j] = j + #{i : p_i <= j}.  Overflow is
-    ``na + nb > A.shape[0]``, checked by the caller."""
+    (out_cap rows, na valid); ties place the A run first.  ``na`` / ``nb``
+    are host ints or 0-d tensors.  Only B is binary-searched: output slot
+    of B[i] = i + p_i where p_i = #{A lex<= B[i]}, and output slot of A[j]
+    = j + #{i : p_i <= j}.  Overflow is ``na + nb > A.shape[0]``, checked
+    by the caller."""
     out_cap, ar = A.shape
     bcap = B.shape[0]
     ia = torch.arange(out_cap, device=A.device)
@@ -324,11 +337,16 @@ def merge_core(A, B, na: int, nb: int):
     # insertion position of each B row AFTER any equal A rows; PAD rows are
     # lex-max so p only counts valid A rows
     p = _lex_searchsorted_right(A, B)
-    h = torch.bincount(torch.where(valid_b, p, out_cap),
-                       minlength=out_cap + 1)
-    cnt = torch.cumsum(h, 0)[:out_cap]      # #{valid B rows lex< A[j]}
-    pos_a = torch.where(ia < na, ia + cnt, out_cap)
-    pos_b = torch.where(valid_b, ib + p, out_cap)
+    # B's valid rows come first and in order, so their p are sorted, and
+    # #{valid B rows lex< A[j]} is one binary search per A row (no
+    # histogram: torch.bincount reads its maximum to the host, and atomics
+    # into one bin for every PAD row serialize on the card)
+    cnt = torch.searchsorted(torch.where(valid_b, p, out_cap + 1), ia,
+                             right=True)
+    # on overflow (na + nb > out_cap, the caller's check) slots past the
+    # block land in the dump row out_cap rather than out of bounds
+    pos_a = torch.where(ia < na, ia + cnt, out_cap).clamp_(max=out_cap)
+    pos_b = torch.where(valid_b, ib + p, out_cap).clamp_(max=out_cap)
     out = _full(out_cap + 1, ar, A)
     out[pos_a] = A
     out[pos_b] = B

@@ -1,22 +1,24 @@
-"""Durable checkpointing and crash recovery for the two-phase executor (the
-port of ``repro.engine.recovery``).
+"""Durable checkpointing and crash recovery for the two-phase and fused
+executors (the port of ``repro.engine.recovery``).
 
 Set ``REPRO_CKPT_DIR`` and ``materialize`` checkpoints its host-consistent
-state at round boundaries and resumes from the newest valid checkpoint on
-the next run.  The on-disk format is the reference's, file for file::
+state at round boundaries (the fused executor: at each pull boundary, so a
+device-loop phase is one boundary) and resumes from the newest valid
+checkpoint on the next run, whichever executor wrote it.  The on-disk
+format is the reference's, file for file::
 
     <REPRO_CKPT_DIR>/ckpt_00000042/
         shard_0.npz        store__<pred> / delta__<pred> / base__<pred>:
                            valid rows, trimmed, in the engine's lexsort order
         dict.pkl           Dictionary.state_dict() (term <-> id interning)
+        caps.pkl           _Caps.state() (converged capacity plan; fused)
         MANIFEST.json      format, tag + run meta + sha256 per payload file
 
-The port writes one shard (it runs on one device) and no ``caps.pkl``
-(it has no capacity planner yet, ROADMAP Queue 1 item 1); a reference
-checkpoint's ``caps.pkl`` is ignored.  ``dict.pkl`` pickles the port's own
-``Null``, so a checkpoint with nulls does not load across the two packages;
-the loader refuses any class of the ``repro`` package rather than import
-it.
+The port writes one shard (it runs on one device).  ``caps.pkl`` is
+written by the fused executor and adopted by a fused resume.  ``dict.pkl``
+pickles the port's own ``Null``, so a checkpoint with nulls does not load
+across the two packages; the loader refuses any class of the ``repro``
+package rather than import it.
 
 Atomicity and integrity: payloads are written into a ``.tmp`` sibling, the
 manifest (with content checksums) is written and fsynced LAST, and the
@@ -105,6 +107,7 @@ class _PortUnpickler(pickle.Unpickler):
 
 
 def load_dict_state(blob: bytes) -> dict:
+    """Unpickle a ``dict.pkl`` or ``caps.pkl`` blob."""
     return _PortUnpickler(io.BytesIO(blob)).load()
 
 
@@ -268,33 +271,39 @@ def preemption_guard() -> PreemptionGuard:
 # executor-facing wrapper
 # ---------------------------------------------------------------------------
 class EngineCheckpointer:
-    """What the two-phase executor talks to.
+    """What the executors talk to.
 
     * ``maybe_resume(st)`` — restore ``kb`` (dictionary + stores + base)
       from the newest valid checkpoint; returns the live deltas as
       ``{pred: (n, ar) np rows}`` (empty for a finished run), or None when
       there is nothing to resume.  Sets the stats cursor and
-      ``st.extra["resumed_rounds"]``.
-    * ``boundary(st, state_fn)`` — call at every committed round boundary.
-      Saves when due (cadence / preemption / ``done``), then runs the fault
+      ``st.extra["resumed_rounds"]``; a saved capacity plan lands in
+      ``caps_state`` for the fused executor to adopt.
+    * ``boundary(st, state_fn, caps=None)`` — call at every committed
+      round boundary.  Saves when due (cadence / preemption / ``done``),
+      with the capacity plan ``caps`` when given, then runs the fault
       hooks, then honors a pending SIGTERM by exiting 143.  ``state_fn`` is
       lazy: stores are only pulled to the host when a save happens.
 
     Disabled (all methods cheap no-ops except the fault hooks) when
-    ``REPRO_CKPT_DIR`` is unset."""
+    ``REPRO_CKPT_DIR`` is unset or ``enabled=False`` (incremental delta
+    calls checkpoint nothing: their lifecycle belongs to the caller)."""
 
-    def __init__(self, kb, mode: str, executor: str):
+    def __init__(self, kb, mode: str, executor: str,
+                 enabled: bool | None = None):
         self.kb = kb
         self.mode = mode
         self.executor = executor
         self.faults = faultinject.get_faults()
         d = ckpt_dir()
-        self.enabled = d is not None
+        self.enabled = (d is not None if enabled is None
+                        else bool(enabled) and d is not None)
         self.mgr = RecoveryManager(d) if self.enabled else None
         self.every = ckpt_every()
         self.fingerprint = kb_fingerprint(kb, mode)
         self.guard = preemption_guard() if self.enabled else None
         self._last_saved = -1
+        self.caps_state = None      # from the checkpoint; executors adopt()
 
     # ------------------------------------------------------------------
     def maybe_resume(self, st):
@@ -306,6 +315,8 @@ class EngineCheckpointer:
         meta, shards, blobs = loaded
         kb = self.kb
         kb.dict.load_state(load_dict_state(blobs["dict.pkl"]))
+        if "caps.pkl" in blobs:
+            self.caps_state = load_dict_state(blobs["caps.pkl"])
         stores, deltas, bases = {}, {}, {}
         for payload in shards:
             for key, arr in payload.items():
@@ -349,29 +360,32 @@ class EngineCheckpointer:
         return self.kb._relation(rows, sorted_by=lex_order(ar))
 
     # ------------------------------------------------------------------
-    def boundary(self, st, state_fn=None, done: bool = False):
+    def boundary(self, st, state_fn=None, caps=None, done: bool = False):
         preempt = self.guard.requested if self.guard is not None else False
         if (self.enabled and state_fn is not None
                 and st.rounds > self._last_saved
                 and (done or preempt
                      or st.rounds - self._last_saved >= self.every)):
-            self._save(st, state_fn(), done=done)
+            self._save(st, state_fn(), caps, done=done)
         self.faults.on_boundary(st.rounds)
         if preempt:
             raise SystemExit(143)
 
-    def final(self, st, state_fn=None):
+    def final(self, st, state_fn=None, caps=None):
         """Terminal boundary: persists the converged state (empty deltas,
         ``done`` meta) so resuming a finished run is a no-op."""
-        self.boundary(st, state_fn, done=True)
+        self.boundary(st, state_fn, caps=caps, done=True)
 
-    def _save(self, st, shards, done: bool):
+    def _save(self, st, shards, caps, done: bool):
         meta = {"fingerprint": self.fingerprint, "executor": self.executor,
                 "mode": self.mode, "rounds": st.rounds,
                 "triggers": st.triggers, "derived": st.derived,
                 "ndev": len(shards), "done": bool(done)}
         blobs = {"dict.pkl": pickle.dumps(
             self.kb.dict.state_dict(), protocol=pickle.HIGHEST_PROTOCOL)}
+        if caps is not None:
+            blobs["caps.pkl"] = pickle.dumps(
+                caps.state(), protocol=pickle.HIGHEST_PROTOCOL)
         path = self.mgr.save(st.rounds, meta, shards, blobs)
         self._last_saved = st.rounds
         st.extra["checkpoints"] = st.extra.get("checkpoints", 0) + 1

@@ -33,6 +33,7 @@ KEY_CODES = {torch.int16: 2, torch.int32: 4, torch.int64: 8}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "rt_smem_block": [],
     "rt_merge_span": [],
@@ -40,6 +41,9 @@ SIGNATURES = {
     "rt_merge_pairs": [_I, _P, _P, _P, _P, _L, _L, _P, _P],
     "rt_unique_mask": [_I, _P, _P, _L, _I, _P],
     "rt_probe_sorted": [_I, _P, _P, _P, _L, _L, _P],
+    "rt_while_graph_create": [_P, _P, _PP, _PP],
+    "rt_graph_launch": [_P, _P],
+    "rt_graph_destroy": [_P, _P],
 }
 
 _LIB = None

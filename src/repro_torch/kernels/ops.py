@@ -11,15 +11,28 @@ both, so the CPU tests reach it:
   dtype's max and sorted with POSITIONS as the payload; the synthetic
   entries are dropped and the caller's payload is gathered back, so the
   returned payload is always a permutation of the caller's;
+* on the card a pow-2 sort is the tile sort and the merges at widths
+  doubling to n; on the CPU it is their plain version, one sort of the
+  (key, payload) pairs;
 * tiles are clamped to pow-2 divisors of the padded length.
+
+Launch counts: each wrapper adds one to its kernel's count where it
+launches the kernel on a CUDA tensor.  Under CUDA graph capture a wrapper
+call records a launch instead of making one, so the fused executor takes
+the calls of a warm-up run and of the capture back out of the counts
+(``uncounted``) and adds the captured launches once per replay
+(``add_launches``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.engine.relation import next_pow2
 from repro_torch.kernels import bitonic_sort as BS
 from repro_torch.kernels import hash_probe as HP
+from repro_torch.kernels import ref
 from repro_torch.kernels import unique_mask as UM
 
 _COUNTERS = (BS.LAUNCHES, UM.LAUNCHES, HP.LAUNCHES)
@@ -39,6 +52,31 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` replays of a captured graph that holds ``counts``
+    launches per kernel."""
+    for c in _COUNTERS:
+        for k in c:
+            c[k] += counts.get(k, 0) * times
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Wrapper calls inside the block leave the counts as they were; the
+    yielded dict holds, after the block, the calls made in it per
+    kernel."""
+    before = launch_counts()
+    made: dict = {}
+    try:
+        yield made
+    finally:
+        after = launch_counts()
+        made.update({k: after[k] - before[k] for k in after})
+        for c in _COUNTERS:
+            for k in c:
+                c[k] = before[k]
+
+
 def _pow2_tile(tile: int, n: int) -> int:
     """Largest pow-2 tile <= min(tile, n); n must itself be pow-2."""
     t = max(1, min(tile, n))
@@ -46,6 +84,10 @@ def _pow2_tile(tile: int, n: int) -> int:
 
 
 def _sort_pow2(keys, vals, tile: int):
+    if keys.device.type == "cpu":
+        # the plain version of the whole ladder: one sort of the pairs
+        BS._check(keys, vals, tile)
+        return ref.sort_with_payload_ref(keys, vals)
     keys, vals = BS.bitonic_sort_tiles(keys, vals, tile)
     width = tile * 2
     while width <= keys.shape[0]:

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-slice on ``cuda`` against the same run on the CPU.  These tests need a CUDA
+"""The port on the card: each CUDA kernel against its plain version, the
+slice on ``cuda`` against the same run on the CPU, and the fused executor's
+captured rounds and device loop against their eager runs.  These tests need a CUDA
 card and skip without one; on the machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -8,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.data.kb_sources import LUBM_L, lubm_facts
-from repro_torch.engine import faultinject, ops, recovery
+from repro_torch.core.terms import Atom, parse_program
+from repro_torch.data.kb_sources import LUBM_L, TC, lubm_facts
+from repro_torch.engine import faultinject, fused, ops, plan, recovery
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import host_order
 from repro_torch.kernels import bitonic_sort as BS
@@ -297,3 +299,180 @@ def test_checkpoint_resume_on_the_card_matches_the_cpu(card, tmp_path,
     for a, b in zip(sh_g, sh_c):
         assert a[0].keys() == b[0].keys()
         assert all(np.array_equal(a[0][k], b[0][k]) for k in a[0])
+
+
+# ---------------------------------------------------------------------------
+# the fused executor on the card: captured rounds, the device loop
+# ---------------------------------------------------------------------------
+DEEP_TC = "e(X, Y) -> T(Y, X)\nT(Y, X) & e(Y, Z) -> T(Z, X)"
+
+
+def _deep_facts(n_chain=192, n_extra=16, seed=0):
+    """``benchmarks/bench_fused.py``'s deep chain (``tc_facts(192, 16)``)."""
+    rng = np.random.default_rng(seed)
+    edges = [(i, i + 1) for i in range(n_chain)]
+    edges += [tuple(e) for e in rng.integers(0, n_chain, (n_extra, 2))]
+    return [Atom("e", (f"v{a}", f"v{b}")) for a, b in edges]
+
+
+WORKLOADS = {"lubm": lambda: (LUBM_L, lubm_facts(n_univ=4)),
+             "deep": lambda: (parse_program(DEEP_TC), _deep_facts())}
+
+
+@pytest.fixture
+def fused_card(card, monkeypatch):
+    """``REPRO_FUSED=1``, no checkpoints or faults, an empty capacity memo
+    and program cache."""
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    for var in ("REPRO_CKPT_DIR", "REPRO_FAULT_SPEC"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(faultinject, "_CACHE", {})
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    fused.clear_programs()
+    yield card
+    fused.clear_programs()
+
+
+def _fused_run(prog, facts, device):
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    KO.reset_launch_counts()
+    kb = EngineKB(prog, facts, device=device)
+    st = materialize(kb, mode="tg")
+    h = ops.HOST_SYNC_STATS
+    rows, counted = _counted_rows(kb, st)
+    return rows, counted + (h.fused_pulls, h.fused_retries), \
+        KO.launch_counts()
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_fused_on_the_card_matches_the_cpu(fused_card, name, monkeypatch):
+    """Cold, then warm on a fresh KB: the card's rows and counters
+    (MatStats with ``extra``, SORT_STATS, count_pulls, fused_pulls,
+    fused_retries) equal the CPU's from the same capacity memo; the warm
+    run retries nothing."""
+    prog, facts = WORKLOADS[name]()
+    out = {}
+    for device in (fused_card, "cpu"):
+        monkeypatch.setattr(plan, "_CAP_MEMO", {})
+        out[str(device)] = [_fused_run(prog, facts, device)
+                            for _ in range(2)]
+    for (rg, cg, lg), (rc, cc, lc) in zip(out["cuda"], out["cpu"]):
+        assert cg == cc
+        assert cg[4] == {"fused": True}
+        assert all(np.array_equal(rg[p], rc[p]) for p in rc)
+        assert set(lc.values()) == {0}
+    assert out["cuda"][1][1][-1] == 0
+    if name == "lubm":
+        assert all(v > 0 for v in out["cuda"][0][2].values())
+
+
+def _captured_rounds():
+    return [p for p in plan._COMPILE_CACHE.values()
+            if isinstance(p.run, fused._Replay) and p.run.graph is not None]
+
+
+def test_captured_round_equals_its_eager_run(fused_card):
+    """Every captured round program of LUBM-L, replayed on its last inputs,
+    gives what its function gives run eagerly on them, and its recorded
+    launches are the eager run's."""
+    prog, facts = WORKLOADS["lubm"]()
+    _fused_run(prog, facts, fused_card)
+    rounds = _captured_rounds()
+    assert rounds
+    for p in rounds:
+        KO.reset_launch_counts()
+        want = [t.clone() for t in p.run.fn(*p.run.static)]
+        eager = KO.launch_counts()
+        KO.reset_launch_counts()
+        got = p.run(*p.run.static)
+        assert KO.launch_counts() == eager == {
+            k: p.run.launches.get(k, 0) for k in eager}
+        assert len(got) == len(want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_device_loop_equals_host_loop_phase_by_phase(fused_card,
+                                                     monkeypatch):
+    """On the deep chain, every device-loop phase ends in the state the
+    host loop (the loop's plain version) reaches from the same inputs on
+    the card, and launches per iteration what the host loop launches."""
+    phases = []
+    call = fused._DeviceLoop.__call__
+
+    def checked(self, consts, state, enter=True):
+        consts = [c.clone() for c in consts]
+        state = [s.clone() for s in state]
+        KO.reset_launch_counts()
+        want = fused._HostLoop(self.step, self.cond)(consts, state)
+        host = KO.launch_counts()
+        got = [t.clone() for t in call(self, consts, state, enter)]
+        torch.cuda.synchronize()
+        n = (len(got) - 1) // 2       # tails, deltas, then scal
+        iters = int(got[-1][2 * n + 3].item())
+        phases.append((want, got, host, iters, self))
+        return got
+
+    monkeypatch.setattr(fused._DeviceLoop, "__call__", checked)
+    prog, facts = WORKLOADS["deep"]()
+    _fused_run(prog, facts, fused_card)
+    assert len(phases) > 1
+    for want, got, host, iters, loop in phases:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert iters >= 1
+        assert host == {k: loop.launches.get(k, 0) * iters for k in host}
+
+
+def test_replayed_round_makes_no_host_sync(fused_card):
+    """Under ``torch.cuda.set_sync_debug_mode("error")``: a captured round
+    replayed, a device-loop launch, and a round's function run eagerly."""
+    prog, facts = WORKLOADS["lubm"]()
+    _fused_run(prog, facts, fused_card)
+    loops = [p for p in plan._COMPILE_CACHE.values()
+             if isinstance(p.run, fused._DeviceLoop)
+             and p.run.loop is not None]
+    p = _captured_rounds()[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p.run(*p.run.static)
+        p.run.fn(*p.run.static)
+        for lp in loops:
+            lp.run(lp.run.consts, lp.run.state, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_failed_capture_raises(card):
+    """A function that syncs the host cannot be captured: the program
+    raises instead of running eagerly, and the next capture works."""
+    x = torch.arange(8, device=card)
+    bad = fused._Replay(lambda t: t + int(t.sum().item()))
+    with pytest.raises(RuntimeError, match="capture"):
+        bad(x)
+    good = fused._Replay(lambda t: t * 2)
+    assert torch.equal(good(x), x * 2)
+    assert torch.equal(good(x + 1), (x + 1) * 2)
+
+
+def test_fused_delta_hand_off_on_the_card_matches_the_cpu(fused_card,
+                                                          monkeypatch):
+    """Prepending an edge to a TC chain cascades past the hand-off: the
+    card's delta call runs fused and equals the CPU's."""
+    base = [Atom("e", (f"n{i}", f"n{i + 1}")) for i in range(16)]
+    out = []
+    for device in (fused_card, "cpu"):
+        monkeypatch.setattr(plan, "_CAP_MEMO", {})
+        kb = EngineKB(TC, base, device=device)
+        materialize(kb, mode="tg")
+        ops.SORT_STATS.reset()
+        ops.HOST_SYNC_STATS.reset()
+        st = kb.materialize_delta(insertions=[Atom("e", ("w1", "n0"))])
+        out.append(_counted_rows(kb, st) + (
+            ops.HOST_SYNC_STATS.fused_pulls,
+            ops.HOST_SYNC_STATS.fused_retries))
+    (rg, sg, pg, tg), (rc, sc, pc, tc) = out
+    assert sg[4].get("fused") is True
+    assert (sg, pg, tg) == (sc, pc, tc)
+    assert all(np.array_equal(rg[p], rc[p]) for p in rc)

@@ -18,6 +18,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -358,24 +359,211 @@ def test_merge_diff_is_a_set_difference(case):
     assert (d.data[d.count:] == torch.iinfo(d.data.dtype).max).all()
 
 
+# ---------------------------------------------------------------------------
+# under REPRO_FUSED=1: the fused hand-off, against the reference
+# ---------------------------------------------------------------------------
+# One piece of source, run against either package (``E`` carries its
+# modules and a ``kb`` factory); each scenario starts from an empty
+# capacity memo.
+FUSED_SCENARIOS = textwrap.dedent('''
+    import copy, os
+
+    TC = "e(X, Y) -> T(X, Y)\\nT(X, Y) & e(Y, Z) -> T(X, Z)"
+
+    def norm(E, facts):
+        return {(f.pred, tuple(("null", t.nid) if isinstance(t, E.Null)
+                               else t for t in f.args)) for f in facts}
+
+    def chain(E, n, prefix="n"):
+        return [E.parse_atom(f"e({prefix}{i}, {prefix}{i + 1})")
+                for i in range(n)]
+
+    def scratch(E, prog, facts, fused):
+        os.environ["REPRO_FUSED"] = fused
+        kb = E.kb(E.parse_program(prog) if isinstance(prog, str) else prog,
+                  facts)
+        E.materialize(kb, mode="tg")
+        return kb
+
+    def call(E, kb, fn):
+        E.ops.HOST_SYNC_STATS.reset()
+        E.ops.SORT_STATS.reset()
+        st = fn(kb)
+        h = E.ops.HOST_SYNC_STATS
+        return {"facts": norm(E, kb.decode_facts()),
+                "stats": (st.rounds, st.triggers, st.derived, st.mode,
+                          dict(st.extra)),
+                "sort_stats": dict(vars(E.ops.SORT_STATS)),
+                "count_pulls": h.count_pulls, "fused_pulls": h.fused_pulls,
+                "fused_retries": h.fused_retries}
+
+    def scenario(E, name):
+        E.plan._CAP_MEMO.clear()
+        P = E.parse_atom
+        if name.startswith("chasebench-"):
+            entry = name.partition("-")[2]
+            fact = E.Atom("iso", ("a", "b"))
+            out = []
+            for fused in ("0", "1"):
+                kb = scratch(E, E.S.CHASEBENCH, E.S.chasebench_facts(n=30),
+                             "0")
+                os.environ["REPRO_FUSED"] = fused
+                if entry == "materialize_delta":
+                    fn = lambda kb: kb.materialize_delta(
+                        insertions=[fact], deletions=[fact])
+                else:
+                    fn = lambda kb: getattr(kb, entry)([fact])
+                out.append(call(E, kb, fn))
+            return out
+        if name == "insert_only":
+            base = chain(E, 10)
+            extra = [P("e(n10, n11)"), P("e(x, n0)")]
+            kb = scratch(E, TC, base, "1")
+            return [call(E, kb, lambda kb: kb.materialize_delta(
+                        insertions=extra)),
+                    {"facts": norm(E, scratch(E, TC, base + extra,
+                                              "1").decode_facts())}]
+        if name == "delete_only":
+            base = chain(E, 10)
+            kb = scratch(E, TC, base, "1")
+            return [call(E, kb, lambda kb: kb.materialize_delta(
+                        deletions=[P("e(n4, n5)")])),
+                    {"facts": norm(E, scratch(E, TC, base[:4] + base[5:],
+                                              "1").decode_facts())}]
+        if name == "mixed":
+            base = chain(E, 8)
+            kb = scratch(E, TC, base, "1")
+            return [call(E, kb, lambda kb: kb.materialize_delta(
+                        insertions=[P("e(m, n0)")],
+                        deletions=[P("e(n3, n4)")])),
+                    {"facts": norm(E, scratch(
+                        E, TC, [P("e(m, n0)")] + base[:3] + base[4:],
+                        "1").decode_facts())}]
+        if name == "shallow":
+            kb = scratch(E, TC, chain(E, 8), "1")
+            return [call(E, kb, lambda kb: kb.materialize_delta(
+                        insertions=[P("e(w0, w1)")]))]
+        if name == "handoff":
+            # prepending a chain edge cascades one closure hop per round
+            base = chain(E, 16)
+            kb = scratch(E, TC, base, "1")
+            w1, w2 = P("e(w1, n0)"), P("e(w2, w1)")
+            out = [call(E, kb, lambda kb: kb.materialize_delta(
+                       insertions=[w1]))]
+            out.append(call(E, kb, lambda kb: kb.materialize_delta(
+                insertions=[w2])))
+            for extra in ([w1], [w1, w2]):
+                out.append({"facts": norm(E, scratch(
+                    E, TC, base + extra, "1").decode_facts())})
+            return out
+        raise KeyError(name)
+''')
+
+FUSED_NAMES = ("chasebench-materialize_delta", "chasebench-insert_facts",
+               "chasebench-delete_facts", "insert_only", "delete_only",
+               "mixed", "shallow", "handoff")
+
+FUSED_REFERENCE_RUN = textwrap.dedent("""
+    import pickle, sys, types
+    import jax, jax.experimental
+    jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
+    from repro.core.terms import Atom, Null, parse_atom, parse_program
+    from repro.data import kb_sources as S
+    from repro.engine import ops, plan
+    from repro.engine.materialize import EngineKB, materialize
+
+    E = types.SimpleNamespace(
+        Atom=Atom, Null=Null, parse_atom=parse_atom,
+        parse_program=parse_program, S=S, ops=ops, plan=plan,
+        materialize=materialize, kb=EngineKB)
+    src, names = pickle.loads(bytes.fromhex(sys.argv[2]))
+    ns = {}
+    exec(src, ns)
+    out = {name: ns["scenario"](E, name) for name in names}
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(out, f)
+""")
+
+
+@pytest.fixture(scope="module")
+def fused_reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("reference") / "fused_deltas.pkl"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.abspath(SRC)
+    subprocess.run([sys.executable, "-c", FUSED_REFERENCE_RUN, str(path),
+                    pickle.dumps((FUSED_SCENARIOS, FUSED_NAMES)).hex()],
+                   check=True, env=env, timeout=900)
+    with open(path, "rb") as f:
+        return pickle.load(f)     # written by the subprocess above
+
+
+@pytest.fixture
+def fused_port(monkeypatch):
+    from repro_torch.core.terms import parse_atom, parse_program
+    from repro_torch.engine import faultinject, plan
+    for var in ("REPRO_FUSED", "REPRO_CKPT_DIR", "REPRO_FAULT_SPEC"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(faultinject, "_CACHE", {})
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    ns = {}
+    exec(FUSED_SCENARIOS, ns)
+    env = types.SimpleNamespace(
+        Atom=Atom, Null=Null, parse_atom=parse_atom,
+        parse_program=parse_program, S=TS, ops=ops, plan=plan,
+        materialize=materialize,
+        kb=lambda prog, facts: EngineKB(prog, facts, device="cpu"))
+
+    def run(name):
+        try:
+            return ns["scenario"](env, name)
+        finally:
+            os.environ.pop("REPRO_FUSED", None)
+    return run
+
+
+@pytest.mark.parametrize("name", FUSED_NAMES)
+def test_fused_delta_matches_reference(fused_reference, fused_port, name):
+    """Every call under ``REPRO_FUSED=1`` (and the scratch runs it is held
+    to): facts, MatStats with ``extra``, SORT_STATS, count_pulls,
+    fused_pulls and fused_retries, as the reference's."""
+    got, want = fused_port(name), fused_reference[name]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, (name, i)
+
+
 @pytest.mark.parametrize("entry", ["materialize_delta", "insert_facts",
                                    "delete_facts"])
-def test_fused_flag_raises_and_leaves_the_kb(entry, monkeypatch):
-    kb = clone(port_scratch("chasebench", "tg"))
-    before = (kb.host_state(), len(kb.dict), kb.dict.num_nulls,
-              dict(kb.arities))
-    fact = Atom("iso", ("a", "b"))
-    monkeypatch.setenv("REPRO_FUSED", "1")
-    call = getattr(kb, entry)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "materialize_delta":
-            call(insertions=[fact], deletions=[fact])
-        else:
-            call([fact])
-    (payload, dstate), n_terms, n_nulls, arities = before
-    after, dafter = kb.host_state()
-    assert after.keys() == payload.keys()
-    assert all(np.array_equal(after[k], payload[k]) for k in payload)
-    assert dafter["to_id"] == dstate["to_id"]
-    assert (len(kb.dict), kb.dict.num_nulls, kb.arities) == \
-        (n_terms, n_nulls, arities)
+def test_fused_flag_on_chasebench_falls_back(fused_port, entry):
+    """ChaseBench has existentials, outside the fused fragment: the call
+    under ``REPRO_FUSED=1`` leaves no ``fused`` flag and equals the
+    two-phase call."""
+    two, fus = fused_port(f"chasebench-{entry}")
+    assert "fused" not in fus["stats"][4]
+    assert fus == two
+
+
+@pytest.mark.parametrize("name", ["insert_only", "delete_only", "mixed"])
+def test_fused_delta_matches_scratch(fused_port, name):
+    st, scratch = fused_port(name)
+    assert st["facts"] == scratch["facts"]
+
+
+def test_shallow_delta_stays_two_phase(fused_port):
+    """A disconnected edge converges in 2 rounds, below the hand-off."""
+    (st,) = fused_port("shallow")
+    assert st["stats"][0] <= 3 and "fused" not in st["stats"][4]
+    assert st["fused_pulls"] == 0
+
+
+def test_deep_cascade_hands_off_to_fused_warm_no_retries(fused_port):
+    """Prepending a chain edge cascades one closure hop per round, so the
+    call hands off to the fused executor; a second same-shaped delta plans
+    from the memoized capacities (zero retries)."""
+    first, second, want1, want2 = fused_port("handoff")
+    assert first["stats"][4].get("fused") is True
+    assert second["stats"][4].get("fused") is True
+    assert second["fused_retries"] == 0
+    assert first["facts"] == want1["facts"]
+    assert second["facts"] == want2["facts"]

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.terms import Atom
 from repro_torch.data.kb_sources import LUBM_L, lubm_facts
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import Relation
@@ -64,30 +63,21 @@ def test_relation_defaults_to_the_card(monkeypatch):
     assert Relation.from_numpy(rows, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_FUSED",
-                                 "REPRO_DIST", "REPRO_FUSED-materialize_delta",
-                                 "REPRO_FUSED-insert_facts",
-                                 "REPRO_FUSED-delete_facts"])
+@pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_DIST"])
 def test_unported_features_raise(how, monkeypatch):
-    """The fused executor (``REPRO_FUSED=1``) is refused by ``materialize``
-    and by every delta entry point, which the reference would hand to it."""
+    """The sharded executor and ``tg_linear`` are refused by
+    ``materialize``.  (``REPRO_FUSED=1`` runs the fused executor: see
+    ``tests/test_torch_fused.py``.)"""
     kb = EngineKB(LUBM_L, lubm_facts(n_univ=1), device="cpu")
     kw = {}
-    call = materialize
     if how == "tg_linear":
         kw["mode"] = "tg_linear"
     elif how == "dist":
         kw["backend"] = "dist"
     else:
-        flag, _, entry = how.partition("-")
-        monkeypatch.setenv(flag, "1")
-        if entry:
-            call = getattr(EngineKB, entry)
-            kw = ({"insertions": [Atom("Student", ("s",))]}
-                  if entry == "materialize_delta"
-                  else {"facts": [Atom("Student", ("s",))]})
+        monkeypatch.setenv(how, "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(kb, **kw)
+        materialize(kb, **kw)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -1,13 +1,15 @@
 """The port's durable checkpoints, fault injection and crash recovery on
-the two-phase executor, on the CPU.
+the two-phase and fused executors, on the CPU.
 
-Ports the two-phase tests of ``tests/test_recovery.py``: the checkpoint
-store (atomic save, checksums, fallback, GC), the fault primitives, the
-SIGTERM guard, the run fingerprint, in-process resume, and kill -9 /
-SIGTERM drills in subprocesses (the fault really kills the process).  The
-reference checkpoints the same ``tc_chain`` run in one subprocess (with
-the ``enable_x64`` shim of ``test_torch_materialize.py``); the port must
-write the same files, tag for tag, and count the same.
+Ports the tests of ``tests/test_recovery.py``: the checkpoint store
+(atomic save, checksums, fallback, GC), the fault primitives, the SIGTERM
+guard, the run fingerprint, in-process resume, kill -9 / SIGTERM drills in
+subprocesses (the fault really kills the process), and on the fused
+executor the ``storm`` fault with its ``CapacityError`` diagnostic, the
+spill to the two-phase executor after progress, and resume parity across
+executors.  The reference checkpoints the same ``tc_chain`` run in one
+subprocess (with the ``enable_x64`` shim of ``test_torch_materialize.py``);
+the port must write the same files, tag for tag, and count the same.
 """
 import json
 import os
@@ -26,9 +28,10 @@ import pytest
 from repro.engine import faultinject as ref_faultinject
 from repro.engine import recovery as ref_recovery
 from repro.data import kb_sources as RS
-from repro_torch.core.terms import Null
+from repro_torch.core.terms import Null, parse_atom, parse_program
 from repro_torch.data import kb_sources as TS
-from repro_torch.engine import faultinject, ops, recovery
+from repro_torch.engine import faultinject, ops, plan, recovery
+from repro_torch.engine.fused import materialize_fused
 from repro_torch.engine.materialize import EngineKB, materialize
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
@@ -502,3 +505,159 @@ def test_fault_then_resume_subprocess(tmp_path, fault):
     want, got = json.loads(ref.stdout), json.loads(r.stdout)
     assert got["resumed_rounds"] == saved
     assert (got["facts"], got["stats"]) == (want["facts"], want["stats"])
+
+
+# ---------------------------------------------------------------------------
+# the fused executor: storm, spill, resume across executors
+# ---------------------------------------------------------------------------
+def _chain(n, extra=0, seed=0):
+    rng = np.random.default_rng(seed)
+    edges = [(i, i + 1) for i in range(n)]
+    edges += [tuple(e) for e in rng.integers(0, n, (extra, 2))]
+    return [parse_atom(f"e(v{a}, v{b})") for a, b in edges]
+
+
+def _kb(prog, facts):
+    return EngineKB(prog, facts, device="cpu")
+
+
+@pytest.fixture
+def fused_env(monkeypatch):
+    """No checkpoints, no faults, an empty capacity memo."""
+    for var in ("REPRO_FUSED", "REPRO_CKPT_DIR", "REPRO_FAULT_SPEC",
+                "REPRO_MAX_RETRIES"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(faultinject, "_CACHE", {})
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    return monkeypatch
+
+
+def test_storm_exhausts_budget_with_diagnostic(fused_env):
+    """Under a forced-overflow storm with a 1-attempt budget the fused
+    executor raises a diagnostic CapacityError (spill=False), returns None
+    (spill=True, no progress yet), and ``materialize`` still reaches the
+    closure on the two-phase executor."""
+    fused_env.setenv("REPRO_FAULT_SPEC", "storm")
+    fused_env.setenv("REPRO_MAX_RETRIES", "1")
+    # the planner's cold-start floor is 64 delta rows (one doubling: 128);
+    # a >128-row extensional delta exhausts a 1-attempt ladder for certain
+    B = _chain(200, extra=50, seed=1)
+    with pytest.raises(plan.CapacityError) as ei:
+        materialize_fused(_kb(TS.TC, B), mode="tg", spill=False)
+    assert ei.value.requested_bytes > 0 and ei.value.label is not None
+    assert "REPRO_MAX_RETRIES=1" in str(ei.value)
+    assert materialize_fused(_kb(TS.TC, B), mode="tg") is None
+    fused_env.setenv("REPRO_FUSED", "1")
+    kb = _kb(TS.TC, B)
+    st = materialize(kb, mode="tg")
+    assert st.extra.get("fused") is not True
+    fused_env.delenv("REPRO_FUSED")
+    fused_env.delenv("REPRO_FAULT_SPEC")
+    fused_env.setattr(faultinject, "_CACHE", {})
+    ref = _kb(TS.TC, B)
+    materialize(ref, mode="tg")
+    assert kb.decode_facts() == ref.decode_facts()
+
+
+def test_midrun_capacity_spill_to_two_phase(fused_env):
+    """A capacity ladder that diverges AFTER committed progress keeps that
+    progress: the fused executor writes back its last good state and the
+    two-phase executor finishes the fixpoint."""
+    prog = parse_program("""
+        s(X) -> t(X)
+        t(X) & e(X, Y) -> t(Y)
+    """)
+    B = [parse_atom("s(v0)")] + \
+        [parse_atom(f"e(v0, w{i})") for i in range(100)]
+    ref = _kb(prog, B)
+    materialize(ref, mode="tg")
+    fused_env.setenv("REPRO_MAX_RETRIES", "2")
+
+    # t's delta bucket fits round 1 (1 fresh row) but the 100-row fan-out
+    # round overflows past the 2-attempt ladder (8 -> 16 -> 32)
+    def small_delta(self, pred):
+        if pred not in self.delta:
+            self.delta[pred] = 8 if pred == "t" else 256
+        return self.delta[pred]
+    fused_env.setattr(plan._Caps, "delta_cap", small_delta)
+    kb = _kb(prog, B)
+    st = materialize_fused(kb, mode="tg")
+    assert st is not None
+    assert "capacity bucket" in st.extra["spilled"]
+    assert kb.decode_facts() == ref.decode_facts()
+    assert all(rel.is_lexsorted for rel in kb.rels.values())
+
+
+def _rewind_to_middle(path, rounds):
+    mgr = recovery.RecoveryManager(str(path), keep=100)
+    tags = mgr.tags()
+    mid = tags[len(tags) // 2]
+    assert 0 < mid < rounds
+    for t in tags:
+        if t > mid:
+            mgr.drop(t)
+    return mid
+
+
+def test_midrun_resume_exact_parity_fused(fused_env, ckpt_env):
+    """A fused run checkpoints at its pull boundaries (with its capacity
+    plan); rewound to a middle tag, a fresh KB resumes on the fused
+    executor to the uninterrupted closure and counts."""
+    B = _chain(14, extra=6, seed=5)
+    fused_env.delenv("REPRO_CKPT_DIR", raising=False)
+    ref = _kb(TS.TC, B)
+    st_ref = materialize(ref, mode="tg")
+    fused_env.setenv("REPRO_CKPT_DIR", str(ckpt_env))
+    fused_env.setenv("REPRO_FUSED", "1")
+    kb1 = _kb(TS.TC, B)
+    st1 = materialize(kb1, mode="tg")
+    assert st1.extra.get("fused") is True
+    assert st1.extra.get("checkpoints", 0) >= 2
+    assert kb1.decode_facts() == ref.decode_facts()
+    files = os.listdir(recovery.RecoveryManager(str(ckpt_env))._path(
+        st1.rounds))
+    assert "caps.pkl" in files
+    mid = _rewind_to_middle(ckpt_env, st_ref.rounds)
+    kb2 = _kb(TS.TC, B)
+    st2 = materialize(kb2, mode="tg")
+    assert st2.extra.get("resumed_rounds") == mid
+    assert st2.extra.get("resumed_from") == ("fused", 1)
+    assert (st2.rounds, st2.triggers, st2.derived) == \
+        (st_ref.rounds, st_ref.triggers, st_ref.derived)
+    assert kb2.decode_facts() == ref.decode_facts()
+
+
+def test_resume_of_finished_fused_run_is_noop(fused_env, ckpt_env):
+    fused_env.setenv("REPRO_FUSED", "1")
+    B = _chain(10, extra=4, seed=2)
+    kb1 = _kb(TS.TC, B)
+    st1 = materialize(kb1, mode="tg")
+    kb2 = _kb(TS.TC, B)
+    st2 = materialize(kb2, mode="tg")
+    assert st2.extra.get("resumed_rounds") == st1.rounds
+    assert (st2.rounds, st2.triggers, st2.derived) == \
+        (st1.rounds, st1.triggers, st1.derived)
+    assert kb2.decode_facts() == kb1.decode_facts()
+
+
+@pytest.mark.parametrize("first", ["fused", "two-phase"])
+def test_cross_executor_restore(fused_env, ckpt_env, first):
+    """Checkpoints are executor-neutral host state: one written mid-run by
+    either executor resumes on the other."""
+    B = _chain(14, extra=6, seed=5)
+    fused_env.delenv("REPRO_CKPT_DIR", raising=False)
+    ref = _kb(TS.TC, B)
+    st_ref = materialize(ref, mode="tg")
+    fused_env.setenv("REPRO_CKPT_DIR", str(ckpt_env))
+    fused_env.setenv("REPRO_FUSED", "1" if first == "fused" else "0")
+    materialize(_kb(TS.TC, B), mode="tg")
+    mid = _rewind_to_middle(ckpt_env, st_ref.rounds)
+    fused_env.setenv("REPRO_FUSED", "0" if first == "fused" else "1")
+    kb2 = _kb(TS.TC, B)
+    st2 = materialize(kb2, mode="tg")
+    assert st2.extra.get("resumed_rounds") == mid
+    assert st2.extra.get("resumed_from", (None,))[0] == first
+    assert (st2.extra.get("fused") is True) == (first == "two-phase")
+    assert (st2.rounds, st2.triggers, st2.derived) == \
+        (st_ref.rounds, st_ref.triggers, st_ref.derived)
+    assert kb2.decode_facts() == ref.decode_facts()

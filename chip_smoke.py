@@ -63,11 +63,20 @@ Phases, each fatal on failure:
    them must hand off to the fused executor and run rounds there.  The
    device loop (``csrc/graph_loop.cu``) is held against the host loop on
    the deep chain's longest phase and timed.
+10. ``tg_linear`` on the card: the TG ``min_linear(tglinear(LUBM_LI))`` is
+   built on the host and timed (the paper's "Comp" column), then phase 3's
+   facts are materialized under LUBM-LI with ``mode="tg_linear"``, with
+   and without cleaning, on the card and on the CPU (rows, dictionary,
+   rounds, triggers, derived, mode, SORT_STATS and count_pulls equal); the
+   card's facts must equal its ``tg`` and ``seminaive`` runs of the same
+   KB; the two settings, ``tg`` and ``seminaive`` are timed warm on fresh
+   copies of the KB, in turns, and one setting is profiled.  The sort
+   kernels and the first-of-run mask must launch with cleaning.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
-``{"kernels": [...]}`` line,
+``{"tg_linear": {...}}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -1157,6 +1166,143 @@ def fused_deltas(name, kbs, calls):
         out.append(rec)
     return out, handed
 
+
+# ---------------------------------------------------------------------------
+# phase 10: reasoning over a precomputed linear TG
+# ---------------------------------------------------------------------------
+# With cleaning, each head predicate's node outputs are deduped: the sorts
+# and the first-of-run mask must launch.  The antijoin that follows meets
+# LUBM-LI's derived stores while they are still empty, so whether the probe
+# launches is recorded, not required.
+TG_LINEAR_KERNELS = ("bitonic_sort_tiles", "bitonic_merge_pairs",
+                     "unique_mask")
+TG_LINEAR_WARM = 5   # warm timed runs of each setting
+
+
+def same_dictionary(a, b) -> bool:
+    """Whether two KBs' dictionaries assign the same ids (so equal rows
+    decode to equal facts)."""
+    sa, sb = a.dict.state_dict(), b.dict.state_dict()
+    return all(np.array_equal(sa[k], sb[k]) if isinstance(sa[k], np.ndarray)
+               else sa[k] == sb[k] for k in sa)
+
+
+def distinct_rows(kb):
+    """Each predicate's distinct rows (a store absorbed without cleaning
+    keeps the duplicate rows of its node outputs)."""
+    return {p: np.unique(rel.np_rows(), axis=0) for p, rel in kb.rels.items()}
+
+
+def timed_materialize(kb, eg, **kw):
+    """One ``materialize`` of ``kb`` (``tg_linear`` over ``eg`` unless
+    ``mode`` says otherwise): counters (``counters_of``), wall s and
+    launches, counted from just before the call to just after it."""
+    from repro_torch import materialize
+    from repro_torch.engine import ops
+    from repro_torch.kernels import ops as KO
+    kw.setdefault("mode", "tg_linear")
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    sync()
+    KO.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = materialize(kb, tg_eg=eg, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    return counters_of(st), wall, KO.launch_counts()
+
+
+def tg_linear_phase(facts):
+    """Phase 10: ``min_linear(tglinear(LUBM_LI))`` on the host (the paper's
+    "Comp" column), then ``materialize(mode="tg_linear")`` of phase 3's
+    facts under LUBM-LI with and without cleaning, on the card and on the
+    CPU (counters, rows and dictionaries equal), against the card's
+    ``tg`` and ``seminaive`` runs (the same facts), warm timed runs of
+    the four settings in turns and one profiled run.  Every KB after the first is a copy
+    of the first one's base state (``from_host_state``), so all share one
+    dictionary.  Returns the record and the launches of the compared card
+    runs per setting."""
+    from repro_torch import EngineKB, materialize
+    from repro_torch.core.tg_linear import min_linear, tglinear
+    from repro_torch.data.kb_sources import LUBM_LI
+    t0 = time.perf_counter()
+    eg = min_linear(tglinear(LUBM_LI))
+    comp = time.perf_counter() - t0
+    log(f"[tg_linear] EG {eg.stats()}, comp {comp:.6f} s")
+    kb0 = EngineKB(LUBM_LI, facts, device="cuda")
+    state = kb0.host_state()
+
+    def fresh(device):
+        return EngineKB.from_host_state(LUBM_LI, *state, device=device)
+
+    rec = {"eg": eg.stats(), "comp_s": comp, "base_facts": len(facts),
+           "runs": {}}
+    launches, results = {}, {}
+    for cleaning in (True, False):
+        tag = f"{'w' if cleaning else 'wo'}-cleaning"
+        kb_g = kb0 if cleaning else fresh("cuda")
+        cnt_g, wall_g, lc = timed_materialize(kb_g, eg, cleaning=cleaning)
+        kb_c = fresh("cpu")
+        cnt_c, wall_c, _ = timed_materialize(kb_c, eg, cleaning=cleaning)
+        if cnt_g != cnt_c:
+            fail(f"tg_linear {tag}: card {cnt_g} vs cpu {cnt_c}")
+        if not same_rows(rows_by_pred(kb_g), rows_by_pred(kb_c)) or \
+                not same_dictionary(kb_g, kb_c):
+            fail(f"tg_linear {tag}: facts differ between card and cpu")
+        if cnt_g[0][3] != f"tg_linear[{tag}]":
+            fail(f"tg_linear {tag}: mode {cnt_g[0][3]}")
+        launches[tag] = lc
+        results[tag] = (distinct_rows(kb_g), kb_g)
+        (rounds, trg, derived, mode, _), sorts, pulls = cnt_g
+        rec["runs"][tag] = {
+            "rounds": rounds, "triggers": trg, "derived": derived,
+            "mode": mode, "sort_stats": sorts, "count_pulls": pulls,
+            "launches": lc, "first_ms": wall_g * 1e3,
+            "cpu_ms": wall_c * 1e3}
+        log(f"[tg_linear] {tag}: {json.dumps(rec['runs'][tag])}")
+        del kb_c
+    del kb0
+    rows_w, kb_w = results["w-cleaning"]
+    rec["facts"] = sum(len(r) for r in rows_w.values())
+    if not same_rows(rows_w, results["wo-cleaning"][0]):
+        fail("tg_linear: w-cleaning and wo-cleaning facts differ")
+    for mode in ("tg", "seminaive"):
+        kb = fresh("cuda")
+        (stats, sorts, pulls), wall, _ = timed_materialize(kb, None, mode=mode)
+        if not same_rows(rows_w, distinct_rows(kb)) or \
+                not same_dictionary(kb, kb_w):
+            fail(f"tg_linear facts differ from the card's {mode} run")
+        rec[mode] = {"rounds": stats[0], "triggers": stats[1],
+                     "derived": stats[2], "count_pulls": pulls,
+                     "first_ms": wall * 1e3}
+        del kb
+    del results, rows_w, kb_w
+    # Warm runs: every setting has run once above; each is timed
+    # TG_LINEAR_WARM times on a fresh KB, in turns, so host drift falls on
+    # all four alike.
+    warm = [(eg, {"cleaning": True}, rec["runs"]["w-cleaning"]),
+            (eg, {"cleaning": False}, rec["runs"]["wo-cleaning"]),
+            (None, {"mode": "tg"}, rec["tg"]),
+            (None, {"mode": "seminaive"}, rec["seminaive"])]
+    for _ in range(TG_LINEAR_WARM):
+        for g, kw, out in warm:
+            _, wall, _ = timed_materialize(fresh("cuda"), g, **kw)
+            out.setdefault("warm_ms_runs", []).append(wall * 1e3)
+    for _, _, out in warm:
+        out["warm_ms"] = float(np.median(out["warm_ms_runs"]))
+    kb = fresh("cuda")
+    rec["profiled_w-cleaning"] = profile_run(
+        "lubm_li tg_linear w-cleaning",
+        lambda: materialize(kb, mode="tg_linear", tg_eg=eg))
+    del kb
+    missing = [k for k in TG_LINEAR_KERNELS
+               if launches["w-cleaning"][k] == 0]
+    if missing:
+        fail(f"tg_linear: {missing} never launched: {launches}")
+    rec["probe_launched"] = launches["w-cleaning"]["probe_sorted"] > 0
+    return rec, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -1372,6 +1518,16 @@ def main() -> int:
     log(f"[fused] {time.perf_counter() - t0:.1f} s; launches "
         f"{launches_fused}; device loops {loops_fused}")
 
+    # 10. tg_linear over a precomputed TG, card against CPU
+    t0 = time.perf_counter()
+    tg_linear, launches_tgl = tg_linear_phase(facts)
+    for r in rows:
+        r["launches_tg_linear"] = sum(lc.get(r["name"], 0)
+                                      for lc in launches_tgl.values())
+        r["launches"] += r["launches_tg_linear"]
+    log(f"[tg_linear] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_tgl}")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
@@ -1379,6 +1535,7 @@ def main() -> int:
     print(json.dumps({"recovery": drills}))
     print(json.dumps({"fused": fused_recs,
                       "fused_deltas": fused_delta_recs}))
+    print(json.dumps({"tg_linear": tg_linear}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

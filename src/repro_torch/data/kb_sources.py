@@ -1,18 +1,43 @@
-"""KB scenario generators + rule programs for the port's main path.
+"""KB scenario generators + rule libraries.
 
-The port's own copy of the scenarios it runs from ``repro.data.kb_sources``
-(the port imports nothing of ``repro``): the LUBM-flavoured university
-program ``LUBM_L``, the ChaseBench-style existential scenario, the ρDF
-triple scenario, deep-chain TC, and the streamed wide-TC scale scenario.
-The generators are identical, so both packages see the same facts.
+The port's own copy of ``repro.data.kb_sources`` (the port imports nothing
+of ``repro``); the generators are identical, so both packages see the same
+facts.  The original benchmark data (LUBM dumps, DBpedia, Claros, Reactome,
+YAGO) is not redistributable; these generators produce scenarios with the
+same *shape*: a university-domain generator with the standard LI ⊂ L ⊂ LE
+rule-set hierarchy (linear subset, full Datalog, plus transitive/symmetric
+extensions), an iBench-style recursive existential scenario (ChaseBench
+analogue), a ρDF triple scenario (RDFS analogue), and transitive closure.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.terms import Atom, parse_program
+from repro_torch.core.terms import Atom, Program, parse_program
 from repro_torch.engine.relation import id_range, store_dtype
 
+
+# ---------------------------------------------------------------------------
+# LUBM-flavoured university scenario
+# ---------------------------------------------------------------------------
+LUBM_LI = parse_program("""
+    gradStudent(S, D) -> Student(S)
+    ugStudent(S, D) -> Student(S)
+    fullProf(P, D) -> Professor(P)
+    assocProf(P, D) -> Professor(P)
+    assistProf(P, D) -> Professor(P)
+    Professor(P) -> Faculty(P)
+    lecturer(P, D) -> Faculty(P)
+    Faculty(P) -> Employee(P)
+    Student(S) -> Person(S)
+    Employee(P) -> Person(P)
+    teaches(P, C) -> Faculty(P)
+    takes(S, C) -> Student(S)
+    advisor(S, P) -> Professor(P)
+    publication(B, P) -> Author(P)
+    headOf(P, D) -> Chair(P)
+    Chair(P) -> Professor(P)
+""")
 
 LUBM_L = parse_program("""
     gradStudent(S, D) -> Student(S)
@@ -42,6 +67,41 @@ LUBM_L = parse_program("""
     takes(S, C) & teaches(P, C) -> TaughtBy(S, P)
     advisor(S, P) & WorksFor(P, U) -> StudentOfUniv(S, U)
     publication(B, P) & advisor(S, P) -> AdvisorPub(S, B)
+""")
+
+LUBM_LE = parse_program("""
+    gradStudent(S, D) -> Student(S)
+    ugStudent(S, D) -> Student(S)
+    fullProf(P, D) -> Professor(P)
+    assocProf(P, D) -> Professor(P)
+    assistProf(P, D) -> Professor(P)
+    Professor(P) -> Faculty(P)
+    lecturer(P, D) -> Faculty(P)
+    Faculty(P) -> Employee(P)
+    Student(S) -> Person(S)
+    Employee(P) -> Person(P)
+    teaches(P, C) -> Faculty(P)
+    takes(S, C) -> Student(S)
+    advisor(S, P) -> Professor(P)
+    publication(B, P) -> Author(P)
+    headOf(P, D) -> Chair(P)
+    Chair(P) -> Professor(P)
+    subOrg(A, B) & subOrg(B, C) -> SubOrgOf(A, C)
+    subOrg(A, B) -> SubOrgOf(A, B)
+    SubOrgOf(A, B) & subOrg(B, C) -> SubOrgOf(A, C)
+    fullProf(P, D) & SubOrgOf(D, U) -> WorksFor(P, U)
+    assocProf(P, D) & SubOrgOf(D, U) -> WorksFor(P, U)
+    gradStudent(S, D) & SubOrgOf(D, U) -> MemberOf(S, U)
+    ugStudent(S, D) & SubOrgOf(D, U) -> MemberOf(S, U)
+    WorksFor(P, U) -> MemberOf(P, U)
+    takes(S, C) & teaches(P, C) -> TaughtBy(S, P)
+    advisor(S, P) & WorksFor(P, U) -> StudentOfUniv(S, U)
+    publication(B, P) & advisor(S, P) -> AdvisorPub(S, B)
+    takes(S, C) & takes(T, C) -> Classmate(S, T)
+    Classmate(S, T) -> Classmate(T, S)
+    advisor(S, P) & advisor(T, P) -> Colleague(S, T)
+    Colleague(S, T) -> Colleague(T, S)
+    Colleague(S, T) & Colleague(T, U) -> Colleague(S, U)
 """)
 
 
@@ -89,6 +149,9 @@ def lubm_facts(n_univ: int = 2, seed: int = 0, scale: int = 1):
     return facts
 
 
+# ---------------------------------------------------------------------------
+# ChaseBench-style recursive existential scenario (iBench STB/ONT analogue)
+# ---------------------------------------------------------------------------
 CHASEBENCH = parse_program("""
     src1(X, Y) -> exists Z. A(X, Z)
     src2(X, Y) -> B(X, Y)
@@ -117,6 +180,9 @@ def chasebench_facts(n: int = 200, seed: int = 1):
     return list(dict.fromkeys(facts))
 
 
+# ---------------------------------------------------------------------------
+# ρDF (RDFS subset) triple scenario
+# ---------------------------------------------------------------------------
 RHO_DF = parse_program("""
     sco(A, B) & sco(B, C) -> SCO(A, C)
     sco(A, B) -> SCO(A, B)
@@ -155,6 +221,9 @@ def rho_df_facts(n_classes: int = 40, n_props: int = 15,
     return facts
 
 
+# ---------------------------------------------------------------------------
+# transitive closure — the canonical deep-fixpoint / exchange-heavy scenarios
+# ---------------------------------------------------------------------------
 TC = parse_program("""
     e(X, Y) -> T(X, Y)
     T(X, Y) & e(Y, Z) -> T(X, Z)
@@ -171,6 +240,23 @@ def tc_chain_facts(n_chain: int = 128, chord_every: int = 8):
     return [Atom("e", (f"v{a}", f"v{b}")) for a, b in edges]
 
 
+def tc_random_facts(n_nodes: int = 400, n_edges: int = 1200, seed: int = 3):
+    """Wide random-graph TC base: few rounds, large joins and deltas, so
+    the per-round exchange/join cost — not the round count — dominates
+    (the scenario where sharding the sort/merge work pays off).  Edge
+    endpoints are generated at the dictionary's id dtype so the data
+    round-trips through the narrow store without a silent upcast."""
+    rng = np.random.default_rng(seed)
+    edges = np.unique(
+        rng.integers(0, n_nodes, (n_edges, 2)).astype(store_dtype()), axis=0)
+    return [Atom("e", (f"v{a}", f"v{b}")) for a, b in edges.tolist()]
+
+
+# ---------------------------------------------------------------------------
+# streamed (chunked-ndarray) scale scenarios: base facts yielded as
+# ("pred", (n, ar) int ndarray) chunks for EngineKB.from_stream — a 10^8-fact
+# KB never exists as decoded Python tuples
+# ---------------------------------------------------------------------------
 def _check_node_range(n_nodes: int, dtype) -> np.dtype:
     dt = np.dtype(dtype) if dtype is not None else store_dtype()
     lo, hi = id_range(dt)
@@ -206,3 +292,45 @@ def tc_wide_chunks(n_chains: int, chain_len: int = 4,
 def tc_wide_total(n_chains: int, chain_len: int = 4) -> int:
     """Total fact count (base edges + closure) of the tc_wide scenario."""
     return n_chains * chain_len + n_chains * chain_len * (chain_len + 1) // 2
+
+
+def tc_random_chunks(n_nodes: int, n_edges: int, seed: int = 3,
+                     chunk_rows: int = 1 << 20, dtype=None):
+    """Random-graph TC base as edge chunks (duplicate edges possible across
+    chunks — the streamed ingest dedups them against the store)."""
+    dt = _check_node_range(n_nodes, dtype)
+    rng = np.random.default_rng(seed)
+    left = n_edges
+    while left > 0:
+        n = min(left, chunk_rows)
+        yield "e", rng.integers(0, n_nodes, (n, 2)).astype(dt)
+        left -= n
+
+
+# ---------------------------------------------------------------------------
+# linear scenarios (LI) helper: the linear sub-programs
+# ---------------------------------------------------------------------------
+def linear_subset(program):
+    return Program([r for r in program.rules if r.is_linear])
+
+
+SCENARIOS = {
+    "LUBM-LI": (LUBM_LI, lambda scale: lubm_facts(n_univ=scale)),
+    "LUBM-L": (LUBM_L, lambda scale: lubm_facts(n_univ=scale)),
+    "LUBM-LE": (LUBM_LE, lambda scale: lubm_facts(n_univ=scale)),
+    "CHASEBENCH": (CHASEBENCH, lambda scale: chasebench_facts(n=100 * scale)),
+    "RHO-DF": (RHO_DF, lambda scale: rho_df_facts(
+        n_classes=20 * scale, n_instances=300 * scale)),
+    "TC-CHAIN": (TC, lambda scale: tc_chain_facts(n_chain=64 * scale)),
+    "TC-RAND": (TC, lambda scale: tc_random_facts(
+        n_nodes=200 * scale, n_edges=600 * scale)),
+}
+
+# streamed counterparts: (program, scale -> iterator of (pred, ndarray)
+# chunks) for EngineKB.from_stream — scale is the TOTAL fact target (base +
+# closure for TC-WIDE), so bases never exist as python tuples
+STREAM_SCENARIOS = {
+    "TC-WIDE": (TC, lambda total: tc_wide_chunks(max(total // 14, 1))),
+    "TC-RAND": (TC, lambda total: tc_random_chunks(
+        n_nodes=max(total // 3, 1), n_edges=total)),
+}

@@ -9,6 +9,10 @@ Modes
   delta-position) groups, executed over parent instances only, with the
   Def. 23 antijoin pre-restriction and redundancy filtering once per round.
 * ``tg_noopt``  — ``tg`` without the Def. 23 pre-restriction.
+* ``tg_linear`` — reasoning over a precomputed instance-independent TG of
+  a linear program (``repro_torch.core.tg_linear``: ``tglinear`` +
+  ``min_linear``), each EG node one rule execution over its parent's
+  output, with or without cleaning.
 
 Trigger counts = total body instantiations (join output rows / filtered
 scan rows), the paper's hardware-independent work metric.
@@ -26,9 +30,9 @@ fused round executor (``repro_torch.engine.fused``): each round is one
 program, captured as a CUDA graph on the card, and linear-tail fixpoints
 run in one device loop.  Programs outside the fused fragment
 (existentials, disconnected bodies) run on the two-phase executor below,
-as on the reference; ``seminaive`` is never fused.  The reference's other
-executors and modes are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+as on the reference; ``seminaive`` and ``tg_linear`` are never fused.  The
+reference's sharded executor is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ def _check_ported_flags() -> None:
     running another executor in its place."""
     if os.environ.get("REPRO_DIST", "0") == "1":
         raise NotImplementedError(
-            "REPRO_DIST=1: " + _NOT_PORTED.format("distributed.py"))
+            "REPRO_DIST=1: " + _NOT_PORTED.format("item 4, distributed.py"))
 
 
 # ---------------------------------------------------------------------------
@@ -352,20 +356,23 @@ class MatStats:
 
 
 def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
+                tg_eg=None, cleaning: bool = True,
                 backend: Optional[str] = None) -> MatStats:
     """mode: seminaive (VLog-like, per-rule filtering) | tg_noopt (TG round-
-    level filtering) | tg (tg_noopt + Def. 23 prefilter).
+    level filtering) | tg (tg_noopt + Def. 23 prefilter) | tg_linear
+    (reasoning over the precomputed instance-independent TG ``tg_eg`` of a
+    linear program, with or without ``cleaning``).
 
     ``REPRO_FUSED=1`` runs ``tg`` / ``tg_noopt`` on the fused executor
-    where the program is in its fragment.  ``tg_linear``,
+    where the program is in its fragment.  ``tg_linear`` returns before
+    ``backend`` and the executor flags are read, as on the reference.
     ``backend="dist"`` and ``REPRO_DIST`` are not ported yet and raise
     ``NotImplementedError``."""
     if mode == "tg_linear":
-        raise NotImplementedError(
-            "mode='tg_linear': " + _NOT_PORTED.format("tg_linear + core/eg.py"))
+        return _materialize_tg_linear(kb, tg_eg, cleaning)
     if backend == "dist":
         raise NotImplementedError(
-            "backend='dist': " + _NOT_PORTED.format("distributed.py"))
+            "backend='dist': " + _NOT_PORTED.format("item 4, distributed.py"))
     if backend not in (None, "local"):
         raise ValueError(f"unknown backend {backend!r}")
     if mode not in ("seminaive", "tg", "tg_noopt"):
@@ -503,4 +510,42 @@ def _fixpoint_rounds(kb, st, deltas, mode, max_rounds, ck,
         deltas = new_deltas
         ck.boundary(st, lambda: _host_state(kb, deltas))
     ck.final(st, lambda: _host_state(kb, deltas))
+    return st
+
+
+def _materialize_tg_linear(kb: EngineKB, eg, cleaning: bool) -> MatStats:
+    """Reason over an instance-independent TG (Def. 5) for linear programs:
+    each node runs its rule over its parent's output (a root over the base
+    store), in topological order; then each head predicate's node outputs
+    are absorbed into the store once.  With ``cleaning`` they are deduped
+    and antijoined against the store first; without it the store's union
+    dedupes and ``derived`` counts the redundant rows too."""
+    if eg is None:
+        raise AssertionError("mode='tg_linear' needs tg_eg (an EG from "
+                             "repro_torch.core.tg_linear)")
+    st = MatStats(mode=f"tg_linear[{'w' if cleaning else 'wo'}-cleaning]")
+    node_rel: Dict[int, Relation] = {}
+    for v in eg.topo_order():
+        rule = eg.rule_of[v]
+        ps = eg.parents(v)
+        src = node_rel[ps[0]] if ps else kb.rels[rule.body[0].pred]
+        head, trg = execute_rule(kb, rule, [src])
+        st.triggers += trg
+        node_rel[v] = head
+    st.rounds = eg.graph_depth() + 1
+    by_pred = defaultdict(list)
+    for v, rel in node_rel.items():
+        by_pred[eg.rule_of[v].head.pred].append(rel)
+    for pred, rels in by_pred.items():
+        acc = rels[0]
+        for r in rels[1:]:
+            acc = ops.union(acc, r, dedupe=False)
+        if cleaning:
+            acc = ops.antijoin(ops.dedup(acc), kb.rels[pred])
+        st.derived += acc.count
+        if cleaning and ops.sorted_store_enabled():
+            kb.rels[pred] = ops.merge_union(kb.rels[pred], acc)
+        else:
+            kb.rels[pred] = ops.union(kb.rels[pred], acc,
+                                      dedupe=not cleaning)
     return st

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-slice on ``cuda`` against the same run on the CPU, and the fused executor's
-captured rounds and device loop against their eager runs.  These tests need a CUDA
+slice on ``cuda`` against the same run on the CPU (``tg_linear`` too), and
+the fused executor's captured rounds and device loop against their eager
+runs.  These tests need a CUDA
 card and skip without one; on the machine with the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.core.terms import Atom, parse_program
-from repro_torch.data.kb_sources import LUBM_L, TC, lubm_facts
+from repro_torch.core.tg_linear import min_linear, tglinear
+from repro_torch.data.kb_sources import LUBM_L, LUBM_LI, TC, lubm_facts
 from repro_torch.engine import faultinject, fused, ops, plan, recovery
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import host_order
@@ -476,3 +478,30 @@ def test_fused_delta_hand_off_on_the_card_matches_the_cpu(fused_card,
     assert sg[4].get("fused") is True
     assert (sg, pg, tg) == (sc, pc, tc)
     assert all(np.array_equal(rg[p], rc[p]) for p in rc)
+
+
+@pytest.mark.parametrize("cleaning", [True, False])
+def test_tg_linear_on_the_card_matches_the_cpu(card, cleaning):
+    """``materialize(mode="tg_linear")`` over the TG
+    ``min_linear(tglinear(LUBM_LI))``: the card's rows and counters equal
+    the CPU's; with cleaning the sort kernels and the first-of-run mask
+    launch on the card."""
+    eg = min_linear(tglinear(LUBM_LI))
+    facts = lubm_facts(n_univ=8)
+    out = []
+    for device in (card, "cpu"):
+        kb = EngineKB(LUBM_LI, facts, device=device)
+        ops.SORT_STATS.reset()
+        ops.HOST_SYNC_STATS.reset()
+        KO.reset_launch_counts()
+        st = materialize(kb, mode="tg_linear", tg_eg=eg, cleaning=cleaning)
+        out.append(_counted_rows(kb, st) + (KO.launch_counts(),))
+    (rg, sg, lg), (rc, sc, lc) = out
+    assert sg == sc
+    assert rg.keys() == rc.keys()
+    assert all(np.array_equal(rg[p], rc[p]) for p in rg)
+    assert set(lc.values()) == {0}
+    if cleaning:
+        assert all(lg[k] > 0 for k in ("bitonic_sort_tiles",
+                                        "bitonic_merge_pairs",
+                                        "unique_mask")), lg

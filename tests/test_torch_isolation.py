@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.data.kb_sources import LUBM_L, lubm_facts
+from repro_torch.core.tg_linear import min_linear, tglinear
+from repro_torch.data.kb_sources import LUBM_L, LUBM_LI, lubm_facts
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.engine.relation import Relation
 
@@ -65,19 +66,33 @@ def test_relation_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_DIST"])
 def test_unported_features_raise(how, monkeypatch):
-    """The sharded executor and ``tg_linear`` are refused by
-    ``materialize``.  (``REPRO_FUSED=1`` runs the fused executor: see
+    """The sharded executor is refused by ``materialize`` in ``tg`` and
+    ``seminaive``.  ``tg_linear`` returns before the executor flags are
+    read, as on the reference, so under ``REPRO_DIST=1`` it runs.
+    (``REPRO_FUSED=1`` runs the fused executor: see
     ``tests/test_torch_fused.py``.)"""
     kb = EngineKB(LUBM_L, lubm_facts(n_univ=1), device="cpu")
     kw = {}
     if how == "tg_linear":
-        kw["mode"] = "tg_linear"
+        monkeypatch.setenv("REPRO_DIST", "1")
+        eg = min_linear(tglinear(LUBM_LI))
+        kb_li = EngineKB(LUBM_LI, lubm_facts(n_univ=1), device="cpu")
+        st = materialize(kb_li, mode="tg_linear", tg_eg=eg)
+        assert (st.mode, st.rounds) == ("tg_linear[w-cleaning]", 5)
+        assert kb_li.rels["Person"].count > 0
     elif how == "dist":
         kw["backend"] = "dist"
     else:
         monkeypatch.setenv(how, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        materialize(kb, **kw)
+    for mode in ("tg", "seminaive"):
+        with pytest.raises(NotImplementedError, match="Queue 1: item 4"):
+            materialize(kb, mode=mode, **kw)
+
+
+def test_core_holds_its_own_symbolic_layer():
+    for name in ("terms", "unify", "chase", "eg", "tg_linear", "rewrite",
+                 "tg_datalog"):
+        assert (PKG / "core" / f"{name}.py").is_file(), name
 
 
 @pytest.mark.parametrize("alone", [False, True])

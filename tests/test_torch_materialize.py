@@ -128,9 +128,17 @@ def test_reference_counts_as_published(reference):
     assert {runs["chasebench", m]["triggers"] for m in MODES} == {330}
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+# the data sources that the cases above do not run
+SOURCES = {
+    "lubm_li": ("LUBM_LI", "lubm_facts", {"n_univ": 2}),
+    "lubm_le": ("LUBM_LE", "lubm_facts", {"n_univ": 1}),
+    "tc_random": ("TC", "tc_random_facts", {"n_nodes": 50, "n_edges": 120}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(SOURCES))
 def test_generators_match_reference(name):
-    prog, gen, kw = CASES[name]
+    prog, gen, kw = {**CASES, **SOURCES}[name]
     ref = [(f.pred, f.args) for f in getattr(RS, gen)(**kw)]
     port = [(f.pred, f.args) for f in getattr(TS, gen)(**kw)]
     assert port == ref
@@ -151,6 +159,36 @@ def test_stream_generators_match_reference(kw):
         assert np.array_equal(got, want)
     args = {k: v for k, v in kw.items() if k in ("n_chains", "chain_len")}
     assert TS.tc_wide_total(**args) == RS.tc_wide_total(**args)
+
+
+@pytest.mark.parametrize("name", sorted(RS.SCENARIOS))
+def test_scenarios_match_reference(name):
+    (rprog, rgen), (tprog, tgen) = RS.SCENARIOS[name], TS.SCENARIOS[name]
+    assert repr(tprog) == repr(rprog)
+    assert repr(TS.linear_subset(tprog)) == repr(RS.linear_subset(rprog))
+    assert [(f.pred, f.args) for f in tgen(2)] == \
+        [(f.pred, f.args) for f in rgen(2)]
+
+
+@pytest.mark.parametrize("name", sorted(RS.STREAM_SCENARIOS))
+def test_stream_scenarios_match_reference(name):
+    (rprog, rgen), (tprog, tgen) = (RS.STREAM_SCENARIOS[name],
+                                     TS.STREAM_SCENARIOS[name])
+    assert repr(tprog) == repr(rprog)
+    ref, port = list(rgen(5000)), list(tgen(5000))
+    assert [p for p, _ in port] == [p for p, _ in ref] != []
+    assert all(got.dtype == want.dtype and np.array_equal(got, want)
+               for (_, got), (_, want) in zip(port, ref))
+
+
+def test_random_chunks_match_reference():
+    kw = dict(n_nodes=300, n_edges=1000, seed=7, chunk_rows=333,
+              dtype="int16")
+    ref = list(RS.tc_random_chunks(**kw))
+    port = list(TS.tc_random_chunks(**kw))
+    assert len(port) == len(ref) == 4
+    assert all(got.dtype == want.dtype and np.array_equal(got, want)
+               for (_, got), (_, want) in zip(port, ref))
 
 
 def test_from_host_state_carries_a_reference_kb(reference):

@@ -72,11 +72,26 @@ Phases, each fatal on failure:
    KB; the two settings, ``tg`` and ``seminaive`` are timed warm on fresh
    copies of the KB, in turns, and one setting is profiled.  The sort
    kernels and the first-of-run mask must launch with cleaning.
+11. the sharded executor (``backend="dist"``, shards run in lockstep on
+   the card): ``benchmarks/bench_dist.py``'s three workloads at full size
+   (``tc_chain_facts(128)``, ``tc_random_facts(500, 1500)`` and LUBM-L
+   ``lubm_facts(n_univ=2, scale=2)``) at 1, 2, 4 and 8 shards, warmed as
+   its ``steady`` does, each held to its ``BENCH_dist.json`` row (facts,
+   rounds, triggers, derived, warm pulls, retries, fixpoint exits and
+   iterations); at 4 shards each also runs on the CPU from the same
+   capacity memo (rows and every counter equal).  Then phase 3's facts
+   under ``backend="dist"`` at 1 and 4 shards, warm: rows, rounds,
+   triggers and derived equal to the card's two-phase run, with the warm
+   wall (median of 3), a profiled run's device busy time, peak memory,
+   pulls and retries.  Every kernel and the device loop must launch, and
+   round and fixpoint programs must be captured; it adds the ``dist``
+   line and a ``launches_dist`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
-``{"tg_linear": {...}}`` line, a ``{"kernels": [...]}`` line,
+``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
+``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -992,7 +1007,8 @@ def fused_run(make_kb, device):
            "fused_retries": h.fused_retries,
            "sort_stats": dict(vars(ops.SORT_STATS))}
     card = {"wall_ms": wall * 1e3, "launches": KO.launch_counts(),
-            "captures": dict(fused.CAPTURES),
+            "captures": {k: fused.CAPTURES[k] for k in ("round",
+                                                         "fixpoint")},
             "graph_loops": GL.LAUNCHES["graph_loop"],
             "peak_bytes": torch.cuda.max_memory_allocated()}
     return kb, rec, card
@@ -1303,6 +1319,187 @@ def tg_linear_phase(facts):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded executor
+# ---------------------------------------------------------------------------
+DIST_NDEVS = (1, 2, 4, 8)
+DIST_WARM = 5        # benchmarks/bench_dist.py's steady(): warm-up runs
+DIST_TIMED = 3       # warm timed runs of each full-width setting
+
+
+def dist_workloads():
+    """``benchmarks/bench_dist.py``'s full-size scenarios: name, program,
+    base facts."""
+    from repro_torch.data.kb_sources import (LUBM_L, TC, lubm_facts,
+                                             tc_chain_facts, tc_random_facts)
+    return [("tc_chain", TC, tc_chain_facts(128)),
+            ("tc_rand", TC, tc_random_facts(500, 1500)),
+            ("LUBM-L", LUBM_L, lubm_facts(n_univ=2, scale=2))]
+
+
+def bench_dist_rows() -> dict:
+    """``BENCH_dist.json``'s sharded rows (the reference's warm runs on 1,
+    2, 4 and 8 virtual devices) by (workload, ndev)."""
+    with open(os.path.join(HERE, "BENCH_dist.json")) as f:
+        results = json.load(f)["results"]
+    return {(r["name"].split(".")[1], r["ndev"]): r for r in results
+            if "ndev" in r}
+
+
+def dist_run(make_kb, device, ndev):
+    """One sharded materialization of a fresh KB (``materialize(kb,
+    backend="dist")`` at the default shard count, else
+    ``materialize_distributed``), counters reset before the KB is built
+    (as ``benchmarks/bench_dist.py`` counts): the KB, its record and the
+    wall s of the materialization."""
+    from repro_torch import materialize
+    from repro_torch.engine import distributed, ops
+    ops.SORT_STATS.reset()
+    ops.HOST_SYNC_STATS.reset()
+    kb = make_kb(device)
+    sync()
+    t0 = time.perf_counter()
+    if ndev == distributed.default_ndev(kb.device):
+        st = materialize(kb, mode="tg", backend="dist")
+    else:
+        st = distributed.materialize_distributed(kb, mode="tg", ndev=ndev)
+    sync()
+    wall = time.perf_counter() - t0
+    h = ops.HOST_SYNC_STATS
+    rec = {"facts": kb.num_facts(), "rounds": st.rounds,
+           "triggers": st.triggers, "derived": st.derived,
+           "extra": dict(st.extra), "sort_stats": dict(vars(ops.SORT_STATS)),
+           "count_pulls": h.count_pulls, "dist_pulls": h.dist_pulls,
+           "dist_retries": h.dist_retries,
+           "dist_fixpoint_pulls": h.dist_fixpoint_pulls,
+           "dist_fixpoint_iters": h.dist_fixpoint_iters}
+    return kb, rec, wall
+
+
+def dist_steady(make_kb, ndev):
+    """``bench_dist.steady`` on the card: warm until no planned capacity
+    moved on the last run (at most ``DIST_WARM`` runs), then one more run.
+    Returns that run's (kb, record, wall s) and the runs it took."""
+    from repro_torch.engine import plan
+    prev, runs = None, 0
+    for _ in range(DIST_WARM):
+        dist_run(make_kb, "cuda", ndev)
+        runs += 1
+        snap = sorted((str(k), v) for k, v in plan._CAP_MEMO.items())
+        if snap == prev:
+            break
+        prev = snap
+    return (*dist_run(make_kb, "cuda", ndev), runs)
+
+
+def dist_phase(lubm_facts_full, lubm_rows, lubm_stats):
+    """Phase 11: the sharded executor on the card.  ``BENCH_dist.json``'s
+    three workloads at 1, 2, 4 and 8 shards, warm, each held to its row
+    (facts, rounds, triggers, derived, and warm pulls 3, retries 0, one
+    fixpoint exit and the row's fixpoint iterations); at 4 shards each
+    also runs on the CPU from the same capacity memo and must give the
+    card's rows and counters.  Then LUBM-L ``n_univ=2000`` (phase 3's
+    facts) at 1 and 4 shards, warm: the card's two-phase rows, rounds,
+    triggers and derived, with the warm wall (median of
+    ``DIST_TIMED``), a profiled run's device busy time, peak memory,
+    pulls and retries.  Returns the record and the launches of the card's
+    runs (the four kernels and the device loop)."""
+    from repro_torch import EngineKB
+    from repro_torch.data.kb_sources import LUBM_L
+    from repro_torch.engine import distributed, fused, plan
+    from repro_torch.kernels import graph_loop as GL
+    from repro_torch.kernels import ops as KO
+    want = bench_dist_rows()
+    plan.clear_programs()
+    plan._CAP_MEMO.clear()
+    fused.CAPTURES.update(dist_round=0, dist_prologue=0, dist_fixpoint=0)
+    KO.reset_launch_counts()
+    GL.LAUNCHES["graph_loop"] = 0
+    rec = {"bench_dist": [], "full_width": []}
+    for name, prog, facts in dist_workloads():
+        def make_kb(device, prog=prog, facts=facts):
+            return EngineKB(prog, facts, device=device)
+        for ndev in DIST_NDEVS:
+            kb, got, wall, runs = dist_steady(make_kb, ndev)
+            row = want[(name, ndev)]
+            expect = {k: row[k] for k in ("facts", "rounds", "triggers",
+                                          "derived", "dist_pulls",
+                                          "dist_retries",
+                                          "dist_fixpoint_pulls",
+                                          "dist_fixpoint_iters")}
+            if {k: got[k] for k in expect} != expect or \
+                    got["extra"] != {"dist": True, "ndev": ndev}:
+                fail(f"dist {name} ndev={ndev}: {got}, BENCH_dist.json "
+                     f"{expect}")
+            entry = {"workload": name, "ndev": ndev, "warm_ms": wall * 1e3,
+                     "warm_up_runs": runs, **got}
+            if ndev == 4:
+                kb_c, got_c, wall_c = dist_run(make_kb, "cpu", ndev)
+                if got_c != got:
+                    fail(f"dist {name} ndev=4: card {got} vs cpu {got_c}")
+                if not same_rows(rows_by_pred(kb), rows_by_pred(kb_c)):
+                    fail(f"dist {name} ndev=4: rows differ between card and "
+                         "cpu")
+                entry["cpu_ms"] = wall_c * 1e3
+                del kb_c
+            rec["bench_dist"].append(entry)
+            log(f"[dist] {json.dumps(entry)}")
+            del kb
+        plan.clear_programs()
+        torch.cuda.empty_cache()
+    kb0 = EngineKB(LUBM_L, lubm_facts_full, device="cuda")
+    state = kb0.host_state()
+    del kb0
+
+    def fresh(device):
+        return EngineKB.from_host_state(LUBM_L, *state, device=device)
+
+    for ndev in (1, 4):
+        kb, got, wall, runs = dist_steady(fresh, ndev)
+        if [got[k] for k in ("rounds", "triggers", "derived")] != \
+                list(lubm_stats) or got["extra"] != {"dist": True,
+                                                     "ndev": ndev}:
+            fail(f"dist lubm_l n_univ={LUBM_UNIV} ndev={ndev}: {got} vs "
+                 f"two-phase {lubm_stats}")
+        if not same_rows(rows_by_pred(kb), lubm_rows):
+            fail(f"dist lubm_l ndev={ndev}: rows differ from the card's "
+                 "two-phase run")
+        del kb
+        walls = [wall]
+        for _ in range(DIST_TIMED - 1):
+            walls.append(dist_run(fresh, "cuda", ndev)[2])
+        kb = fresh("cuda")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_run(
+            f"lubm_l dist ndev={ndev}",
+            lambda: distributed.materialize_distributed(kb, ndev=ndev))
+        entry = {"workload": f"lubm_l n_univ={LUBM_UNIV}", "ndev": ndev,
+                 "warm_ms": statistics.median(walls) * 1e3,
+                 "warm_ms_runs": [w * 1e3 for w in walls],
+                 "warm_up_runs": runs, "profiled": prof,
+                 "peak_bytes": torch.cuda.max_memory_allocated(), **got}
+        rec["full_width"].append(entry)
+        log(f"[dist] {json.dumps(entry)}")
+        del kb
+        plan.clear_programs()
+        torch.cuda.empty_cache()
+    launches = KO.launch_counts()
+    launches["graph_loop"] = GL.LAUNCHES["graph_loop"]
+    rec["captures"] = {k: v for k, v in fused.CAPTURES.items()
+                       if k.startswith("dist_")}
+    rec["launches"] = launches
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"dist: {missing} never launched on the sharded path: "
+             f"{launches}")
+    if not rec["captures"]["dist_round"] or \
+            not rec["captures"]["dist_fixpoint"]:
+        fail(f"dist: no captured round or fixpoint program: "
+             f"{rec['captures']}")
+    return rec, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -1528,6 +1725,16 @@ def main() -> int:
     log(f"[tg_linear] {time.perf_counter() - t0:.1f} s; launches "
         f"{launches_tgl}")
 
+    # 11. the sharded executor: BENCH_dist.json's rows, card against CPU,
+    # and LUBM-L at full width against the card's two-phase run
+    t0 = time.perf_counter()
+    dist, launches_dist = dist_phase(facts, lubm_rows, lubm_stats)
+    for r in rows:
+        r["launches_dist"] = launches_dist.get(r["name"], 0)
+        r["launches"] += r["launches_dist"]
+    log(f"[dist] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_dist}")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
@@ -1536,6 +1743,7 @@ def main() -> int:
     print(json.dumps({"fused": fused_recs,
                       "fused_deltas": fused_delta_recs}))
     print(json.dumps({"tg_linear": tg_linear}))
+    print(json.dumps({"dist": dist}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

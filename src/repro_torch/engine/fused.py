@@ -69,8 +69,11 @@ from repro_torch.kernels import ops as KO
 __all__ = ["RulePlan", "clear_programs", "compile_rule_plan",
            "materialize_fused", "lower_fused_programs"]
 
-# graphs captured since the last reset: round programs and fixpoint loops
-CAPTURES = {"round": 0, "fixpoint": 0}
+# graphs captured since the last reset: the fused executor's round programs
+# and fixpoint loops, and the sharded executor's (``engine/distributed.py``)
+# round programs, fixpoint prologues and fixpoint loops
+CAPTURES = {"round": 0, "fixpoint": 0,
+            "dist_round": 0, "dist_prologue": 0, "dist_fixpoint": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +112,7 @@ def _capture(kind: str, fn, keep_graph: bool = False):
     try:
         out = GL.capture(fn, keep_graph=keep_graph)
     except Exception as e:
-        raise RuntimeError(f"CUDA graph capture of a fused {kind} program "
+        raise RuntimeError(f"CUDA graph capture of a {kind} program "
                            f"failed: {e}") from e
     CAPTURES[kind] += 1
     return out
@@ -134,11 +137,13 @@ class _Replay:
     dropped, calls not counted), captures it and replays; later calls copy
     their inputs in and replay.  Outputs live in the graph's memory pool
     and the next replay overwrites them; ``held`` gives back the inputs of
-    the last call, which a replay leaves as they were."""
+    the last call, which a replay leaves as they were.  The capture is
+    counted under ``kind`` in ``CAPTURES``."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, kind: str = "round"):
         self.fn = fn
         self.graph = None
+        self.kind = kind
 
     def __call__(self, *args):
         if self.graph is None:
@@ -146,7 +151,7 @@ class _Replay:
             with KO.uncounted():
                 self.fn(*self.static)
             self.graph, self.out, self.launches = _capture(
-                "round", lambda: self.fn(*self.static))
+                self.kind, lambda: self.fn(*self.static))
         else:
             _stage(self.static, args)
         self.graph.replay()
@@ -186,12 +191,13 @@ class _DeviceLoop:
     copies the constants and the initial state in and launches the loop
     once, if ``enter`` (the loop condition on entry) holds; it returns the
     state buffers, which hold the exit state once the stream reaches
-    them."""
+    them.  The capture is counted under ``kind`` in ``CAPTURES``."""
 
-    def __init__(self, step, cond):
+    def __init__(self, step, cond, kind: str = "fixpoint"):
         self.step = step
         self.cond = cond
         self.loop = None
+        self.kind = kind
 
     def _build(self, consts, state):
         self.consts = [c.clone() for c in consts]
@@ -208,12 +214,12 @@ class _DeviceLoop:
                 buf.copy_(v)
             self.cont.copy_(cont.reshape(1))
 
-        graph, _, self.launches = _capture("fixpoint", iteration,
+        graph, _, self.launches = _capture(self.kind, iteration,
                                            keep_graph=True)
         try:
             self.loop = GL.WhileLoop(graph, self.cont)
         except RuntimeError as e:
-            raise RuntimeError(f"fused fixpoint program: {e}") from e
+            raise RuntimeError(f"{self.kind} program: {e}") from e
 
     def __call__(self, consts, state, enter=True):
         if self.loop is None:

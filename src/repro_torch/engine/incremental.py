@@ -16,7 +16,9 @@ delta-sized capacities; when a cascade runs past ``_FUSED_HANDOFF`` rounds
 and ``REPRO_FUSED=1`` with the program in the plannable fragment, the live
 deltas are handed to the fused executor
 (``materialize_fused(initial_deltas=...)``, with lean capacity guesses),
-as on the reference.
+as on the reference.  The sharded executor takes no deltas: under
+``REPRO_DIST=1`` a delta call runs on these single-device paths, as on
+the reference.
 
 Deletions — DRed (delete and re-derive)
 ---------------------------------------

@@ -30,13 +30,17 @@ fused round executor (``repro_torch.engine.fused``): each round is one
 program, captured as a CUDA graph on the card, and linear-tail fixpoints
 run in one device loop.  Programs outside the fused fragment
 (existentials, disconnected bodies) run on the two-phase executor below,
-as on the reference; ``seminaive`` and ``tg_linear`` are never fused.  The
-reference's sharded executor is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+as on the reference; ``seminaive`` and ``tg_linear`` are never fused.
+
+With ``backend="dist"`` (or ``REPRO_DIST=1``), ``tg``/``tg_noopt`` route
+through the sharded executor (``repro_torch.engine.distributed``): the
+stores are hash-partitioned into shards on the KB's device, and each round
+runs the shards in lockstep as one program.  Programs outside its fragment
+fall back to the fused executor (``REPRO_FUSED=1``), then to the two-phase
+executor; ``seminaive`` under ``backend="dist"`` runs two-phase.
 """
 from __future__ import annotations
 
-import os
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -48,17 +52,6 @@ from repro_torch.engine import ops, recovery
 from repro_torch.engine.dictionary import Dictionary
 from repro_torch.engine.relation import (Relation, host_order, lex_order,
                                          resolve_device)
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: {})"
-
-
-def _check_ported_flags() -> None:
-    """Refuse the reference's sharded-executor flag rather than silently
-    running another executor in its place."""
-    if os.environ.get("REPRO_DIST", "0") == "1":
-        raise NotImplementedError(
-            "REPRO_DIST=1: " + _NOT_PORTED.format("item 4, distributed.py"))
-
 
 # ---------------------------------------------------------------------------
 # KB container
@@ -363,21 +356,26 @@ def materialize(kb: EngineKB, mode: str = "tg", max_rounds: int = 10_000,
     (reasoning over the precomputed instance-independent TG ``tg_eg`` of a
     linear program, with or without ``cleaning``).
 
-    ``REPRO_FUSED=1`` runs ``tg`` / ``tg_noopt`` on the fused executor
-    where the program is in its fragment.  ``tg_linear`` returns before
-    ``backend`` and the executor flags are read, as on the reference.
-    ``backend="dist"`` and ``REPRO_DIST`` are not ported yet and raise
-    ``NotImplementedError``."""
+    backend: None (``REPRO_DIST=1`` selects "dist") | "dist" (the sharded
+    executor, over ``distributed.default_ndev`` shards) | "local".  The
+    sharded executor covers the plannable fragment of ``tg``/``tg_noopt``;
+    anything else falls back to the executors below.  ``REPRO_FUSED=1``
+    runs ``tg`` / ``tg_noopt`` on the fused executor where the program is
+    in its fragment.  ``tg_linear`` returns before ``backend`` and the
+    executor flags are read, as on the reference."""
     if mode == "tg_linear":
         return _materialize_tg_linear(kb, tg_eg, cleaning)
-    if backend == "dist":
-        raise NotImplementedError(
-            "backend='dist': " + _NOT_PORTED.format("item 4, distributed.py"))
-    if backend not in (None, "local"):
+    if backend not in (None, "local", "dist"):
         raise ValueError(f"unknown backend {backend!r}")
     if mode not in ("seminaive", "tg", "tg_noopt"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_ported_flags()
+    if backend is None and ops.dist_enabled():
+        backend = "dist"
+    if backend == "dist" and mode in ("tg", "tg_noopt"):
+        from repro_torch.engine.distributed import materialize_distributed
+        st = materialize_distributed(kb, mode=mode, max_rounds=max_rounds)
+        if st is not None:  # None: outside the plannable fragment
+            return st
     if mode in ("tg", "tg_noopt") and ops.fused_enabled():
         from repro_torch.engine.fused import materialize_fused
         st = materialize_fused(kb, mode=mode, max_rounds=max_rounds)

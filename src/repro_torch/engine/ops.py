@@ -60,6 +60,19 @@ def fused_enabled() -> bool:
     return os.environ.get("REPRO_FUSED", "0") == "1"
 
 
+def dist_enabled() -> bool:
+    """Route eligible materialization through the sharded executor
+    (``REPRO_DIST=1``, the same as ``materialize(backend="dist")``)."""
+    return os.environ.get("REPRO_DIST", "0") == "1"
+
+
+def dist_fixpoint_enabled() -> bool:
+    """Run linear-tail fixpoint phases of the sharded executor as one loop
+    program (on by default; ``REPRO_DIST_FIXPOINT=0`` steps every round
+    from the host)."""
+    return os.environ.get("REPRO_DIST_FIXPOINT", "1") != "0"
+
+
 @dataclass
 class SortStats:
     """Counts of sort passes performed / avoided."""
@@ -84,7 +97,10 @@ class HostSyncStats:
     pulls its count-pass result once (``count_pulls``); the fused executor
     pulls one scalar bundle per round program and per fixpoint exit
     (``fused_pulls``) and counts its overflow retries (``fused_retries``).
-    The distributed counters stay 0 until that executor is ported."""
+    The sharded executor pulls once per round attempt and once per
+    fixpoint exit (``dist_pulls``), counts its host-stepped round retries
+    (``dist_retries``), its fixpoint exits (``dist_fixpoint_pulls``) and
+    the rounds run inside fixpoint programs (``dist_fixpoint_iters``)."""
     count_pulls: int = 0
     fused_pulls: int = 0
     fused_retries: int = 0

@@ -7,19 +7,19 @@ join chain, and the head projection — with a pure-python ``key``
 fingerprint.  ``compile_rule_plan`` builds one (or ``None`` for rules
 outside the plannable fragment: existentials, disconnected bodies).
 
-The plan describes what a round computes; the fused round executor
-(``repro_torch.engine.fused``) stitches plans into one static-shape
-program per round, captured as a CUDA graph on the card.  The reference's
-distributed executor consumes the same plans; its ``route`` hook of
-``_exec_rule_traced`` is left out until ``distributed.py`` is ported
-(ROADMAP Queue 1 item 4).
+The plan describes what a round computes; two executors stitch plans
+into static-shape programs, captured as CUDA graphs on the card: the fused
+round executor (``repro_torch.engine.fused``) on one block per predicate,
+and the sharded executor (``repro_torch.engine.distributed``) on
+hash-partitioned shards, with bucket exchanges before the Def. 23
+pre-restriction and before both sides of every join.
 
 This module also owns the capacity + overflow contract:
 
 * :class:`_Caps` pre-sizes every planned buffer (store / delta / tail /
-  join) before a program is built, and memoizes successful sizes per
-  :func:`program_fingerprint` in the module-level ``_CAP_MEMO`` so
-  warmed-up programs plan right first try.
+  join / exchange bucket) before a program is built, and memoizes
+  successful sizes per :func:`program_fingerprint` in the module-level
+  ``_CAP_MEMO`` so warmed-up programs plan right first try.
 * Every planned capacity gets an in-program overflow flag (``needed >
   planned``).  When any flag fires, the executor discards the round's
   outputs, doubles exactly the overflowed capacities under a
@@ -30,11 +30,14 @@ This module also owns the capacity + overflow contract:
   (captured graphs on the card), keyed by each program's full static
   signature.
 
-``_exec_rule_traced`` / ``_absorb_traced`` are the round pieces built from
-the ``repro_torch.engine.ops`` cores; nothing in them synchronizes the
-host.  :func:`_linear_tail` decides when the remaining fixpoint is linear
-(every still-reachable rule has exactly one body atom over a
-still-changing predicate) so a whole phase can run in one device loop, and
+``_walk_rule`` / ``_absorb_traced`` are the round pieces built from the
+``repro_torch.engine.ops`` cores; nothing in them synchronizes the host.
+``_walk_rule`` is a generator: with a ``route`` it yields at every
+exchange (the sharded executor's collectives), without one it never
+yields, and ``_exec_rule_traced`` runs it to its end.
+:func:`_linear_tail` decides when the remaining fixpoint is linear (every
+still-reachable rule has exactly one body atom over a still-changing
+predicate) so a whole phase can run in one device loop, and
 :func:`_select_state` is the loop-carry select that keeps the last GOOD
 state when an overflow flag fires mid-loop.
 """
@@ -295,37 +298,56 @@ def _project_head_core(data, spec):
                        pad_of(data))
 
 
-def _exec_rule_traced(plan, inputs, pre_data, join_caps, prefilter=None):
-    """One rule body over pre-sized inputs.  ``inputs`` are lexsorted padded
-    blocks (stores / deltas — the sorted-store invariant is the compiled
-    executor's precondition), so primary-column join keys need no sort.
-    The Def. 23 pre-restriction either antijoins against ``pre_data`` (one
-    haystack) or calls the ``prefilter(rows, cols) -> keep_mask`` hook (the
-    fused fixpoint loop probes store | tail).  The reference's ``route``
-    hook (the sharded executor's exchanges) is not ported yet.  Returns
-    (head_rows, triggers, overflow_flags): one join-capacity flag per join
-    step."""
+def _walk_rule(plan, inputs, pre_data, join_caps, prefilter=None,
+               route=None):
+    """One rule body over pre-sized inputs, as a generator.  ``inputs`` are
+    lexsorted padded blocks (stores / deltas — the sorted-store invariant is
+    the compiled executors' precondition), so primary-column join keys need
+    no sort.  The Def. 23 pre-restriction either antijoins against
+    ``pre_data`` (one haystack) or calls the ``prefilter(rows, cols) ->
+    keep_mask`` hook (the fixpoint loops probe store | tail).
+
+    ``route`` (the sharded executor) re-partitions rows before the
+    pre-restriction (by the projected head tuple, so the probe is local to
+    the shard that owns the would-be head fact) and before both sides of
+    each join (by the join key): ``rows', flags, sort_key = yield from
+    route(rows, key_cols, tag)``, where ``sort_key`` is the known sort
+    column of ``rows'`` (None: unknown, the chain sorts).  Without a route
+    the walk never yields.  Returns (head_rows, triggers, overflow_flags);
+    the flag order is pre / left / right exchange flags then the
+    join-capacity flag, per join step."""
     ovfs = []
     cur = None
     cur_skey = None                # statically-known sort column of cur
     for j, (eq, consts) in enumerate(plan.atoms):
         data = inputs[j]
+        data_skey = 0              # inputs arrive lexsorted (primary col 0)
         if eq or consts:
             mask = ops.filter_mask_core(data, eq, consts)
             data = ops.compact_core(data, mask, data.shape[0])
         if plan.pre is not None and plan.pre[0] == j and (
                 pre_data is not None or prefilter is not None):
+            if route is not None:
+                data, flags, data_skey = yield from route(
+                    data, plan.pre[1], ("pre", j))
+                ovfs += flags
             if prefilter is not None:
                 keep = prefilter(data, plan.pre[1])
             else:
                 keep = ops.anti_keep_core(data, pre_data, plan.pre[1])
             data = ops.compact_core(data, keep, data.shape[0])
         if cur is None:
-            cur, cur_skey = data, 0    # inputs arrive lexsorted
+            cur, cur_skey = data, data_skey
             continue
         lk, rk, eq2 = plan.joins[j - 1]
+        if route is not None:
+            cur, flags, cur_skey = yield from route(cur, (lk,), ("jl", j))
+            ovfs += flags
+            data, flags, data_skey = yield from route(data, (rk,),
+                                                      ("jr", j))
+            ovfs += flags
         ls = cur if cur_skey == lk else ops.keysort_core(cur, lk)
-        rs = data if rk == 0 else ops.keysort_core(data, rk)
+        rs = data if data_skey == rk else ops.keysort_core(data, rk)
         total, per, cum, lo = ops.join_count_core(ls, rs, lk, rk)
         cap = join_caps[j - 1]
         ovfs.append(total > cap)
@@ -338,16 +360,31 @@ def _exec_rule_traced(plan, inputs, pre_data, join_caps, prefilter=None):
     return _project_head_core(cur, plan.head_spec), triggers, ovfs
 
 
-def _absorb_traced(heads, fresh_mask_fn, into_data, into_count, delta_cap):
+def _exec_rule_traced(plan, inputs, pre_data, join_caps, prefilter=None):
+    """``_walk_rule`` without a route, run to its end (the fused
+    executor's rule body).  Returns (head_rows, triggers, overflow_flags):
+    one join-capacity flag per join step."""
+    walk = _walk_rule(plan, inputs, pre_data, join_caps, prefilter)
+    try:
+        next(walk)
+    except StopIteration as done:
+        return done.value
+    raise RuntimeError("a rule walk without a route yielded")
+
+
+def _absorb_traced(heads, fresh_mask_fn, into_data, into_count, delta_cap,
+                   presorted: bool = False):
     """Round-level redundancy filtering + merge for one predicate: concat
     rule outputs, lexsort + first-occurrence dedup, keep rows passing
     ``fresh_mask_fn`` (non-membership in the store — or in store | tail
-    inside the fused fixpoint loop), compact the fresh rows to the delta
+    inside the fixpoint loops), compact the fresh rows to the delta
     bucket, and fold them into ``into_data`` (the store, or the loop's tail
-    buffer) with the incremental sorted merge.  Returns (merged, new_count,
+    buffer) with the incremental sorted merge.  ``presorted`` lets a caller
+    that already holds ONE lexsorted head block (the sharded fixpoint's
+    sorted absorb exchange) skip the sort.  Returns (merged, new_count,
     delta, n_fresh, (delta_overflow, merge_overflow))."""
     cat = heads[0] if len(heads) == 1 else torch.cat(heads, dim=0)
-    s = ops.lexsort_core(cat)
+    s = cat if presorted and len(heads) == 1 else ops.lexsort_core(cat)
     uniq = ops.dedup_mask_core(s)
     fresh_mask = uniq & fresh_mask_fn(s)
     n_fresh = fresh_mask.sum()
@@ -365,13 +402,13 @@ class _Caps:
     """Pre-sizes every planned buffer; doubles on overflow; memoizes
     successful sizes per program fingerprint.
 
-    Capacity kinds: per-predicate ``store`` / ``delta`` / ``tail`` buckets
-    and per-join-step ``join`` output buckets.  ``bucket`` (the reference's
-    per-exchange-site capacities of its sharded executor) stays empty until
-    that executor is ported; it is kept so that checkpointed plans
-    round-trip between the packages."""
+    Capacity kinds: per-predicate ``store`` / ``delta`` / ``tail`` buckets,
+    per-join-step ``join`` output buckets, and per-exchange-site ``bucket``
+    capacities (the sharded executor: the per-destination bucket of one
+    exchange; the received block is ``ndev * bucket`` rows).  For the
+    sharded executor every count, and so every capacity, is per shard."""
 
-    def __init__(self, fp, stores, lean: bool = False):
+    def __init__(self, fp, stores, ndev: int = 1, lean: bool = False):
         """``lean`` starts the delta-family guesses at the floor instead of
         ~2x the store scale: incremental-maintenance calls enter with deltas
         of a few rows.  Overflow doubling still grows them when a cascade
@@ -395,6 +432,7 @@ class _Caps:
             guess = memo or next_pow2(max(32, 4 * max(count, 1)))
             self.store[pred] = max(guess, next_pow2(max(count, 1)))
         self._delta_guess = next_pow2(max(64, 2 * base))
+        self._bucket_guess = next_pow2(max(32, 2 * base // max(ndev, 1)))
 
     def delta_cap(self, pred):
         if pred not in self.delta:
@@ -417,6 +455,13 @@ class _Caps:
             self.tail[pred] = (_CAP_MEMO.get((self.fp, "tail", pred), 0)
                                or 4 * self.delta_cap(pred))
         return self.tail[pred]
+
+    def bucket_cap(self, key):
+        """Per-destination bucket of one sharded exchange site."""
+        if key not in self.bucket:
+            self.bucket[key] = (_CAP_MEMO.get((self.fp, "bucket", key), 0)
+                                or self._bucket_guess)
+        return self.bucket[key]
 
     def seed_delta(self, pred, count):
         """Widen ``pred``'s delta bucket to hold an externally-seeded delta

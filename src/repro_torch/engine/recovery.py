@@ -1,24 +1,32 @@
-"""Durable checkpointing and crash recovery for the two-phase and fused
-executors (the port of ``repro.engine.recovery``).
+"""Durable checkpointing and crash recovery for the two-phase, fused and
+sharded executors (the port of ``repro.engine.recovery``).
 
 Set ``REPRO_CKPT_DIR`` and ``materialize`` checkpoints its host-consistent
-state at round boundaries (the fused executor: at each pull boundary, so a
-device-loop phase is one boundary) and resumes from the newest valid
-checkpoint on the next run, whichever executor wrote it.  The on-disk
-format is the reference's, file for file::
+state at round boundaries (the fused and sharded executors: at each pull
+boundary, so a device-loop phase is one boundary) and resumes from the
+newest valid checkpoint on the next run, whichever executor wrote it.  The
+on-disk format is the reference's, file for file::
 
     <REPRO_CKPT_DIR>/ckpt_00000042/
         shard_0.npz        store__<pred> / delta__<pred> / base__<pred>:
                            valid rows, trimmed, in the engine's lexsort order
         dict.pkl           Dictionary.state_dict() (term <-> id interning)
-        caps.pkl           _Caps.state() (converged capacity plan; fused)
+        caps.pkl           _Caps.state() (converged capacity plan; fused
+                           and sharded)
         MANIFEST.json      format, tag + run meta + sha256 per payload file
 
-The port writes one shard (it runs on one device).  ``caps.pkl`` is
-written by the fused executor and adopted by a fused resume.  ``dict.pkl``
-pickles the port's own ``Null``, so a checkpoint with nulls does not load
-across the two packages; the loader refuses any class of the ``repro``
-package rather than import it.
+The two-phase and fused executors write one shard; the sharded executor
+(executor tag ``"dist"``) writes one ``shard_<i>.npz`` per shard, with the
+base facts on shard 0.  The loader concatenates the shards and re-sorts,
+so a checkpoint restores at any shard count and on any executor: the
+sharded executor re-partitions the restored rows by the full-tuple hash
+its exchanges use (``distributed._tuple_hash``, whose host mirror is
+``np_tuple_hash``).  ``caps.pkl`` is written by the fused and sharded
+executors; a fused resume adopts it, a sharded resume only from a
+sharded run at the same shard count (its capacities are per shard).
+``dict.pkl`` pickles the port's own ``Null``, so a checkpoint with nulls
+does not load across the two packages; the loader refuses any class of
+the ``repro`` package rather than import it.
 
 Atomicity and integrity: payloads are written into a ``.tmp`` sibling, the
 manifest (with content checksums) is written and fsynced LAST, and the
@@ -278,7 +286,7 @@ class EngineCheckpointer:
       ``{pred: (n, ar) np rows}`` (empty for a finished run), or None when
       there is nothing to resume.  Sets the stats cursor and
       ``st.extra["resumed_rounds"]``; a saved capacity plan lands in
-      ``caps_state`` for the fused executor to adopt.
+      ``caps_state`` for the fused and sharded executors to adopt.
     * ``boundary(st, state_fn, caps=None)`` — call at every committed
       round boundary.  Saves when due (cadence / preemption / ``done``),
       with the capacity plan ``caps`` when given, then runs the fault

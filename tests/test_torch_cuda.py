@@ -505,3 +505,109 @@ def test_tg_linear_on_the_card_matches_the_cpu(card, cleaning):
         assert all(lg[k] > 0 for k in ("bitonic_sort_tiles",
                                         "bitonic_merge_pairs",
                                         "unique_mask")), lg
+
+
+# ---------------------------------------------------------------------------
+# the sharded executor on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", DTYPES)
+def test_dist_hash_on_the_card(card, dt):
+    """The device tuple hash on the card equals the CPU's and its host
+    mirror bit for bit, with negative ids and PAD."""
+    from repro_torch.engine import distributed as D
+    g = torch.Generator().manual_seed(3)
+    info = torch.iinfo(dt)
+    rows = torch.randint(info.min, info.max, (4096, 2), generator=g,
+                         dtype=torch.int64).to(dt)
+    rows[:64] = -1
+    rows[64:128] = info.max
+    want = D.np_tuple_hash(rows.numpy()).astype(np.int64)
+    assert np.array_equal(D._tuple_hash(rows).numpy(), want)
+    assert np.array_equal(D._tuple_hash(rows.to(card)).cpu().numpy(), want)
+
+
+def test_dist_lockstep_exchange_on_the_card(card):
+    """Four shard bodies route their rows to the tuple-hash home shard with
+    the sorted exchange and merge the received runs: the card's blocks
+    equal the CPU's."""
+    from repro_torch.engine import distributed as D
+    g = torch.Generator().manual_seed(4)
+    rows = torch.randint(0, 500, (4, 256, 2), generator=g).to(torch.int32)
+    rows[:, 200:] = torch.iinfo(torch.int32).max
+
+    def body(block):
+        tgt = D._shard_of(D._tuple_hash(block), 4)
+        out, dropped = yield from D._exchange(block, tgt, 4, 128,
+                                              ("absorb", "T"),
+                                              sort_cols=(0, 1))
+        return D._merge_runs(out, 4, (0, 1)), dropped
+
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        res = D._lockstep([body(rows[d].to(dev)) for d in range(4)])
+        out[dev.type] = [(b.cpu(), int(n)) for b, n in res]
+    for (bg, ng), (bc, nc) in zip(out["cuda"], out["cpu"]):
+        assert ng == nc == 0 and torch.equal(bg, bc)
+    got = torch.cat([b for b, _ in out["cpu"]])
+    valid = got[got[:, 0] != torch.iinfo(torch.int32).max]
+    assert sorted(map(tuple, valid.tolist())) == sorted(
+        map(tuple, rows[rows[..., 0] != torch.iinfo(torch.int32).max]
+            .tolist()))
+
+
+@pytest.fixture
+def dist_card(card, monkeypatch):
+    for var in ("REPRO_DIST", "REPRO_DIST_FIXPOINT", "REPRO_FUSED",
+                "REPRO_CKPT_DIR", "REPRO_FAULT_SPEC", "REPRO_MAX_RETRIES"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(faultinject, "_CACHE", {})
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    plan.clear_programs()
+    yield card
+    plan.clear_programs()
+
+
+@pytest.mark.parametrize("fix", ["1", "0"])
+@pytest.mark.parametrize("name,ndev", [("tc", 4), ("lubm", 2)])
+def test_dist_on_the_card_matches_the_cpu(dist_card, name, ndev, fix,
+                                          monkeypatch):
+    """Cold, then warm: the card's sharded runs give the CPU's rows and
+    counters (MatStats with ``extra``, SORT_STATS, count_pulls and the
+    sharded pulls, retries and fixpoint iterations) from the same memo;
+    the card's rounds are captured graphs and, with the fixpoint on, its
+    linear phases run in the device loop."""
+    from repro_torch.engine import distributed as D
+    from repro_torch.kernels import graph_loop as GL
+    from repro_torch.data.kb_sources import tc_chain_facts
+    monkeypatch.setenv("REPRO_DIST_FIXPOINT", fix)
+    prog, facts = ((TC, tc_chain_facts(48)) if name == "tc"
+                   else (LUBM_L, lubm_facts(n_univ=1)))
+    out = {}
+    for device in (dist_card, "cpu"):
+        monkeypatch.setattr(plan, "_CAP_MEMO", {})
+        fused.CAPTURES.update(dist_round=0, dist_prologue=0,
+                              dist_fixpoint=0)
+        GL.LAUNCHES["graph_loop"] = 0
+        runs = []
+        for _ in range(2):
+            ops.SORT_STATS.reset()
+            ops.HOST_SYNC_STATS.reset()
+            kb = EngineKB(prog, facts, device=device)
+            st = D.materialize_distributed(kb, ndev=ndev)
+            h = ops.HOST_SYNC_STATS
+            rows, counted = _counted_rows(kb, st)
+            runs.append((rows, counted + (h.dist_pulls, h.dist_retries,
+                                          h.dist_fixpoint_pulls,
+                                          h.dist_fixpoint_iters)))
+        out[str(device)] = (runs, dict(fused.CAPTURES),
+                            GL.LAUNCHES["graph_loop"])
+    (card_runs, caps, loops), (cpu_runs, _, _) = out["cuda"], out["cpu"]
+    for (rg, cg), (rc, cc) in zip(card_runs, cpu_runs):
+        assert cg == cc
+        assert cg[4] == {"dist": True, "ndev": ndev}
+        assert all(np.array_equal(rg[p], rc[p]) for p in rc)
+    assert caps["dist_round"] > 0
+    if fix == "1":
+        assert caps["dist_fixpoint"] > 0 and loops > 0
+    else:
+        assert caps["dist_fixpoint"] == 0 and loops == 0

@@ -66,11 +66,14 @@ def test_relation_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_DIST"])
 def test_unported_features_raise(how, monkeypatch):
-    """The sharded executor is refused by ``materialize`` in ``tg`` and
-    ``seminaive``.  ``tg_linear`` returns before the executor flags are
-    read, as on the reference, so under ``REPRO_DIST=1`` it runs.
-    (``REPRO_FUSED=1`` runs the fused executor: see
-    ``tests/test_torch_fused.py``.)"""
+    """The sharded executor runs behind ``backend="dist"`` and
+    ``REPRO_DIST=1`` in ``tg`` (``seminaive`` runs two-phase, as on the
+    reference); what it leaves unported, the XLA lowering of a sharded
+    round, raises naming its ROADMAP item.  ``tg_linear`` returns before
+    the executor flags are read, as on the reference, so under
+    ``REPRO_DIST=1`` it runs.  (``REPRO_FUSED=1`` runs the fused executor:
+    see ``tests/test_torch_fused.py``.)"""
+    from repro_torch.engine import distributed
     kb = EngineKB(LUBM_L, lubm_facts(n_univ=1), device="cpu")
     kw = {}
     if how == "tg_linear":
@@ -84,9 +87,15 @@ def test_unported_features_raise(how, monkeypatch):
         kw["backend"] = "dist"
     else:
         monkeypatch.setenv(how, "1")
-    for mode in ("tg", "seminaive"):
-        with pytest.raises(NotImplementedError, match="Queue 1: item 4"):
-            materialize(kb, mode=mode, **kw)
+    st = materialize(kb, mode="tg", **kw)
+    assert st.extra == {"dist": True, "ndev": 1}
+    kb_two = EngineKB(LUBM_L, lubm_facts(n_univ=1), device="cpu")
+    st_two = materialize(kb_two, mode="seminaive", **kw)
+    assert "dist" not in st_two.extra
+    assert kb.decode_facts() == kb_two.decode_facts()
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: analysis \\+ benchmarks"):
+        distributed.lower_distributed_tc()
 
 
 def test_core_holds_its_own_symbolic_layer():

@@ -86,11 +86,30 @@ Phases, each fatal on failure:
    pulls and retries.  Every kernel and the device loop must launch, and
    round and fixpoint programs must be captured; it adds the ``dist``
    line and a ``launches_dist`` key to each kernel row.
+12. serving dense LMs (``repro_torch.models``; no kernel of its own):
+   LUBM-L ``n_univ=2000`` materialized on the card with ``tg`` (phase 3's
+   facts and counts; every kernel must launch), linearized by the port's
+   ``KBLinearizer(kb, 8, 256)`` and served by ``examples/kb_to_lm.py``'s
+   ``lm_100m`` at the linearizer's vocabulary: prefill and 32 greedy
+   tokens on caches padded to 256 + 32, in float32 (TF32 off) on the card
+   and on the CPU fed the card's tokens (tokens equal where the margin
+   exceeds ``F32_TOL``, logits within it), then in bfloat16 on the card,
+   timed.  ``stablelm_12b``'s ``CONFIG`` at full width and depth in
+   bfloat16: prefill 8 x 2048 (two attention chunks) cold and warm, 64
+   greedy tokens on caches padded to 2048 + 64, finite logits, and the
+   first decode step against a re-prefill of the extended prompt (the
+   K/V row it wrote and its logits within ``BF16_REL`` in rms, and a
+   planted decode that drops its own K/V above it);
+   a 2-layer copy at full width in float32 on the card against the CPU
+   (each float32 run's decode also within ``F32_RMS`` of its
+   re-prefill, and its planted fault above it).  It adds the ``serve``
+   line and a ``launches_serve`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
+``{"serve": {...}}`` line, a
 ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
@@ -200,7 +219,8 @@ def device_ms(fn, reps: int = 10) -> float:
 
 def profile_run(name: str, fn) -> dict:
     """Wall time of ``fn`` (ending in a synchronize), the device's busy
-    time in it from a torch.profiler trace, and the kernels that took it."""
+    time in it from a torch.profiler trace, the number of device entries
+    (kernels, copies, memsets) and the ones that took the most time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -213,6 +233,7 @@ def profile_run(name: str, fn) -> dict:
     busy = sum(e.self_device_time_total for e in ka) / 1e3
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
     return {"workload": name, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "kernels": sum(e.count for e in ka),
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                     for e in top]}
 
@@ -1500,6 +1521,284 @@ def dist_phase(lubm_facts_full, lubm_rows, lubm_stats):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving dense LMs over tokens of a KB the port materialized
+# ---------------------------------------------------------------------------
+KB_LM = {"batch": 8, "seq": 256, "gen": 32}     # examples/kb_to_lm.py's
+FULL = {"batch": 8, "prompt": 2048, "gen": 64}  # stablelm_12b, full width
+FULL_CPU = {"batch": 2, "prompt": 1040, "gen": 4}   # 2 layers, card vs CPU
+F32_TOL = 1e-3    # card against CPU, float32: |a - b| <= tol * (1 + |b|)
+F32_RMS = 1e-4    # decode against re-prefill, float32: rms(a - b) <= tol *
+                  # rms(b), for the logits and the K/V row decode wrote
+BF16_REL = 0.1    # the same, bfloat16 through 40 random layers; set
+                  # between a sound step (logits 0.054, K/V row 0.036) and
+                  # the planted fault (logits 0.18) on the H100
+
+
+def lm_100m(vocab: int):
+    """``examples/kb_to_lm.py``'s ``lm_100m`` (its line 24), copied."""
+    from repro_torch.configs.base import ModelConfig
+    return ModelConfig(
+        name="kb-lm-100m", family="dense", num_layers=8, d_model=768,
+        num_heads=12, num_kv_heads=4, head_dim=64, d_ff=2304,
+        vocab_size=vocab, mlp_type="swiglu", norm_type="rmsnorm",
+        attn_chunk=128, loss_chunk=128, remat="none")
+
+
+def serve_run(mdl, tokens, gen, feed=None, keep=()):
+    """Prefill ``tokens`` (B, S), pad the caches to S + ``gen`` positions
+    and decode ``gen`` tokens: greedily, or fed the tokens of ``feed``.  The
+    host clock times the prefill and each decode step, each ending in a
+    synchronize (the reference's serve loop reads every token back).
+    Returns the tokens chosen (B, gen + 1) and their top-2 margins, the
+    logits of the positions in ``keep`` (0: the prefill's, t + 1: decode
+    step t's; float32 on the CPU), whether every logit was finite, and the
+    seconds of the prefill and of each decode step, and the caches."""
+    from repro_torch.models.model import pad_caches
+    card = mdl.device.type == "cuda"
+
+    def clock():
+        if card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = clock()
+    logits, caches = mdl.prefill({"tokens": tokens.to(mdl.device)})
+    t_prefill = clock() - t0
+    S = tokens.shape[1]
+    caches = pad_caches(caches, S + gen)
+    toks, margins, kept, finite, steps = [], [], {}, True, []
+    for t in range(gen + 1):
+        top2 = logits.topk(2, dim=-1).values
+        toks.append(logits.argmax(-1).cpu())
+        margins.append((top2[:, 0] - top2[:, 1]).cpu())
+        finite = finite and bool(torch.isfinite(logits).all())
+        if t in keep:
+            kept[t] = logits.float().cpu()
+        if t == gen:
+            break
+        tok = toks[-1] if feed is None else feed[:, t]
+        t0 = clock()
+        logits, caches = mdl.decode(caches, tok.to(mdl.device), S + t)
+        steps.append(clock() - t0)
+    return {"tokens": torch.stack(toks, 1),
+            "margins": torch.stack(margins, 1), "logits": kept,
+            "finite": finite, "prefill_s": t_prefill, "step_s": steps,
+            "caches": caches}
+
+
+def logits_agree(got, want, tol) -> dict:
+    """Max |got - want| and whether every logit has ``|got - want| <=
+    tol * (1 + |want|)``."""
+    diff = (got - want).abs()
+    return {"max_abs_err": float(diff.max()),
+            "within_tol": bool((diff <= tol * (1 + want.abs())).all())}
+
+
+def compare_runs(card, cpu, tol) -> dict:
+    """The CPU run (fed the card's tokens) against the card's: tokens equal
+    wherever the CPU's top-2 margin exceeds ``tol``, and the kept logits
+    within ``tol``."""
+    sure = cpu["margins"] > tol
+    bad = int((card["tokens"][sure] != cpu["tokens"][sure]).sum())
+    agree = [logits_agree(card["logits"][t], cpu["logits"][t], tol)
+             for t in cpu["logits"]]
+    return {"tokens_compared": int(sure.sum()),
+            "near_ties": int((~sure).sum()), "token_mismatches": bad,
+            "max_abs_err_logits": max(a["max_abs_err"] for a in agree),
+            "tol": tol,
+            "ok": bad == 0 and all(a["within_tol"] for a in agree)
+            and card["finite"] and cpu["finite"]}
+
+
+def timing(run, batch) -> dict:
+    steps = [s * 1e3 for s in run["step_s"]]
+    return {"prefill_ms": run["prefill_s"] * 1e3,
+            "decode_ms_per_token": statistics.median(steps),
+            "decode_tokens_per_s": batch * len(steps) / sum(run["step_s"])}
+
+
+def rms(x) -> float:
+    return float(x.double().square().mean().sqrt())
+
+
+def decode_vs_reprefill(mdl, tokens, run) -> dict:
+    """The first decode step (``run`` kept the logits of positions 0 and 1
+    and its padded caches) against a prefill of the prompt and the token it
+    was fed: max |a - b| and rms(a - b) / rms(b) of the logits, with tokens
+    equal wherever the re-prefill's top-2 margin exceeds twice that max,
+    and rms(a - b) / rms(b) of the K/V row the step wrote at position S.
+    Beside them, a planted fault: the same step on the prompt-length
+    caches, which writes no K/V and so leaves the token out of its own
+    attention (the reference's contract, ROADMAP Queue 3).  Its logits'
+    ratio is what the logit check would read for that fault; its K/V row
+    stays the padding's zeros, a ratio of 1."""
+    V, S = mdl.cfg.vocab_size, tokens.shape[1]
+    fed = run["tokens"][:, 0].to(tokens.device)
+    ref, ref_caches = mdl.prefill({"tokens": torch.cat([tokens, fed[:, None]],
+                                                       1)})
+    caches = run["caches"]
+    kv = max(rms(caches[n][:, :, S].float() - ref_caches[n][:, :, S].float())
+             / rms(ref_caches[n][:, :, S]) for n in ("k", "v"))
+    del ref_caches
+    fault, _ = mdl.decode({n: c[:, :, :S] for n, c in caches.items()}, fed,
+                          S)
+    ref, fault = ref.float().cpu()[:, :V], fault.float().cpu()[:, :V]
+    got = run["logits"][1][:, :V]
+    top2 = ref.topk(2, dim=-1).values
+    err = float((got - ref).abs().max())
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+    return {"max_abs_err": err,
+            "within_tol": logits_agree(got, ref, F32_TOL)["within_tol"],
+            "rms_rel_err": rms(got - ref) / rms(ref),
+            "kv_rms_rel_err": kv,
+            "fault_rms_rel_err": rms(fault - ref) / rms(ref),
+            "tokens_compared": int(sure.sum()),
+            "token_mismatches": int((got.argmax(-1)[sure]
+                                     != ref.argmax(-1)[sure]).sum())}
+
+
+def card_against_cpu(cfg, tokens, gen):
+    """``cfg`` (float32) with weights drawn on the card from seed 0, served
+    there (TF32 off) and its first decode step held against a re-prefill
+    (to ``F32_TOL`` and ``F32_RMS``, and the planted fault must read above
+    ``F32_RMS``), then moved to the CPU and served again, fed the card's
+    tokens.  Returns the comparison."""
+    from repro_torch.models.model import build
+    mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    card = serve_run(mdl, tokens, gen, keep=(0, 1, gen))
+    again = decode_vs_reprefill(mdl, tokens, card)
+    card.pop("caches")
+    mdl.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = serve_run(mdl, tokens.cpu(), gen, feed=card["tokens"][:, :-1],
+                    keep=(0, 1, gen))
+    rec = compare_runs(card, cpu, F32_TOL)
+    rec["ok"] = rec["ok"] and again["within_tol"] \
+        and not again["token_mismatches"] \
+        and again["rms_rel_err"] <= F32_RMS \
+        and again["kv_rms_rel_err"] <= F32_RMS \
+        and again["fault_rms_rel_err"] > F32_RMS
+    return {**rec, "decode_vs_reprefill": {**again, "tol_rms_rel": F32_RMS},
+            "card": timing(card, tokens.shape[0]),
+            "cpu_s": time.perf_counter() - t0}
+
+
+def serve_phase(facts, lubm_nfacts, lubm_stats):
+    """Phase 12.  (a) LUBM-L ``n_univ=2000`` materialized on the card with
+    ``tg`` (held to phase 3's facts and counts), linearized by the port's
+    ``KBLinearizer(kb, 8, 256)`` and served by ``lm_100m`` at the
+    linearizer's vocabulary: prefill and 32 greedy tokens on caches padded
+    to 256 + 32, in float32 on the card against the CPU, then in bfloat16
+    on the card, timed after a warm-up.  (b) ``stablelm_12b``'s ``CONFIG``
+    at full width and depth in bfloat16: a cold prefill of 8 x 2048, then
+    a warm one and 64 greedy tokens on caches padded to 2048 + 64, timed;
+    finite logits; the first decode step against a re-prefill of the
+    prompt and its next token (``decode_vs_reprefill``).  Then a 2-layer
+    copy at full width in float32 on the card against the CPU.  Returns the ``serve`` record and
+    the kernel launches of (a)'s path (the LM side has no kernel)."""
+    from repro_torch import EngineKB, materialize
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.kb_sources import LUBM_L
+    from repro_torch.data.pipeline import KBLinearizer
+    from repro_torch.kernels import ops as KO
+    from repro_torch.models.model import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) KB -> LM
+    KO.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kb = EngineKB(LUBM_L, facts)
+    st = materialize(kb, mode="tg")
+    sync()
+    t_mat = time.perf_counter() - t0
+    if (kb.num_facts(), [st.rounds, st.triggers, st.derived]) != \
+            (lubm_nfacts, list(lubm_stats)):
+        fail(f"serve: the KB has {kb.num_facts()} facts, {st}; phase 3 had "
+             f"{lubm_nfacts}, {lubm_stats}")
+    t0 = time.perf_counter()
+    data = KBLinearizer(kb, batch=KB_LM["batch"], seq=KB_LM["seq"])
+    t_lin = time.perf_counter() - t0
+    del kb
+    tokens = torch.from_numpy(data.next()["tokens"]).cuda()
+    cfg = lm_100m(data.vocab_size)
+    f32 = card_against_cpu(cfg.with_(dtype="float32"), tokens,
+                                    KB_LM["gen"])
+    mdl = build(cfg.with_(dtype="bfloat16"), "cuda",
+                torch.Generator(device="cuda").manual_seed(0))
+    serve_run(mdl, tokens, 2)                          # warm-up
+    bf16 = serve_run(mdl, tokens, KB_LM["gen"])
+    launches = KO.launch_counts()
+    kb_lm = {"config": {k: getattr(cfg, k) for k in (
+                 "num_layers", "d_model", "num_heads", "num_kv_heads",
+                 "head_dim", "d_ff", "vocab_size", "attn_chunk")},
+             "facts": lubm_nfacts, "materialize_s": t_mat,
+             "linearize_s": t_lin, "stream_tokens": len(data.stream),
+             **KB_LM, "float32_card_vs_cpu": f32,
+             "bfloat16": {**timing(bf16, KB_LM["batch"]),
+                          "finite": bf16["finite"]},
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "launches": launches}
+    del mdl
+    torch.cuda.empty_cache()
+    log(f"[serve] kb_lm {json.dumps(kb_lm)}")
+    if not f32["ok"] or not bf16["finite"]:
+        fail(f"serve kb_lm: {kb_lm}")
+
+    # (b) stablelm_12b at full width and depth
+    cfg = get_config("stablelm_12b")
+    B, S, gen = FULL["batch"], FULL["prompt"], FULL["gen"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    t_build = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    mdl.prefill({"tokens": tokens})
+    sync()
+    t_cold = time.perf_counter() - t0
+    run = serve_run(mdl, tokens, gen, keep=(0, 1))
+    again = decode_vs_reprefill(mdl, tokens, run)
+    last = run["tokens"][:, -1].cuda()
+    prof = profile_run("stablelm_12b decode step", lambda: mdl.decode(
+        run.pop("caches"), last, S + gen - 1))
+    full = {"config": {k: getattr(cfg, k) for k in (
+                "num_layers", "d_model", "num_heads", "num_kv_heads",
+                "head_dim", "d_ff", "vocab_size", "attn_chunk", "dtype")},
+            "params": sum(p.numel() for p in mdl.parameters()), **FULL,
+            "build_s": t_build, "prefill_cold_ms": t_cold * 1e3,
+            **timing(run, B), "finite": run["finite"],
+            "decode_step_profile": prof,
+            "decode_vs_reprefill": {**again, "tol_rms_rel": BF16_REL},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    del mdl, run, tokens
+    torch.cuda.empty_cache()
+    log(f"[serve] stablelm_12b {json.dumps(full)}")
+    if not (full["finite"] and again["rms_rel_err"] <= BF16_REL
+            and again["kv_rms_rel_err"] <= BF16_REL
+            and again["fault_rms_rel_err"] > BF16_REL):
+        fail(f"serve stablelm_12b: {full}")
+
+    tokens = torch.randint(0, cfg.vocab_size, (FULL_CPU["batch"],
+                                               FULL_CPU["prompt"]),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+    two = card_against_cpu(cfg.with_(num_layers=2, dtype="float32"),
+                              tokens, FULL_CPU["gen"])
+    full["two_layers_float32_card_vs_cpu"] = {**FULL_CPU, **two}
+    torch.cuda.empty_cache()
+    log(f"[serve] stablelm_12b 2 layers {json.dumps(two)}")
+    if not two["ok"]:
+        fail(f"serve stablelm_12b 2 layers: card and CPU differ: {two}")
+    return {"kb_lm": kb_lm, "stablelm_12b": full}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -1561,6 +1860,7 @@ def main() -> int:
             fail(f"a kernel was never launched on LUBM-L: {launches_lubm}")
         lubm_kbs, lubm_stats = (kb_g, kb_c), [st_g.rounds, st_g.triggers,
                                               st_g.derived]
+        lubm_nfacts = kb_g.num_facts()
         del rc
 
         # 4. tc_wide at scale, card against CPU
@@ -1735,6 +2035,21 @@ def main() -> int:
     log(f"[dist] {time.perf_counter() - t0:.1f} s; launches "
         f"{launches_dist}")
 
+    # 12. serving dense LMs: a KB materialized on the card, linearized and
+    # served by lm_100m (card against CPU), and stablelm_12b at full width
+    del kb_g
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served, launches_serve = serve_phase(facts, lubm_nfacts, lubm_stats)
+    for r in rows:
+        r["launches_serve"] = launches_serve.get(r["name"], 0)
+        r["launches"] += r["launches_serve"]
+    log(f"[serve] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_serve}")
+    if any(launches_serve[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched on the KB->LM path: "
+             f"{launches_serve}")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
@@ -1744,6 +2059,7 @@ def main() -> int:
                       "fused_deltas": fused_delta_recs}))
     print(json.dumps({"tg_linear": tg_linear}))
     print(json.dumps({"dist": dist}))
+    print(json.dumps({"serve": {**served, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

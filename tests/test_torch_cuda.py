@@ -611,3 +611,160 @@ def test_dist_on_the_card_matches_the_cpu(dist_card, name, ndev, fix,
         assert caps["dist_fixpoint"] > 0 and loops > 0
     else:
         assert caps["dist_fixpoint"] == 0 and loops == 0
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path on the card (no kernel of its own: plain torch ops,
+# held against the same functions on the CPU; TF32 off)
+# ---------------------------------------------------------------------------
+LM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+          torch.bfloat16: dict(atol=5e-2, rtol=0)}
+
+
+@pytest.fixture
+def lm_card(card, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return card
+
+
+def _smoke_cfg(dtype, **kw):
+    from repro_torch.configs.base import get_smoke_config
+    return get_smoke_config("stablelm_12b").with_(
+        dtype=str(dtype).removeprefix("torch."), **kw)
+
+
+def _same_on_card(fn, args, dtype, card, tol=None):
+    """``fn`` on the CPU tensors / mappings in ``args`` and on their card
+    copies: equal within ``tol`` (default: the dtype's tolerance)."""
+    def to(x, dev):
+        if isinstance(x, dict):
+            return {k: to(v, dev) for k, v in x.items()}
+        return x.to(dev) if torch.is_tensor(x) else x
+    want = fn(*args)
+    got = fn(*(to(a, card) for a in args))
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        torch.testing.assert_close(g.cpu().float(), w.float(),
+                                   **(tol or LM_TOL[dtype]))
+
+
+def _params(cfg, make):
+    """``make(cfg, generator)``'s parameters, biases and scales moved away
+    from their initial 0 and 1."""
+    g = torch.Generator().manual_seed(0)
+    p = dict(make(cfg, g))
+    for k, v in p.items():
+        if k.startswith("b") or "norm" in k or k == "scale":
+            p[k] = (v.float() + 0.1 * torch.randn(v.shape, generator=g)).to(
+                v.dtype)
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["norm_rms", "norm_layer", "rope", "swiglu",
+                                "squared_relu", "gelu_bias", "flash_causal",
+                                "flash_full", "attention_fwd", "decode_inside",
+                                "decode_at_end", "embed_logits"])
+def test_lm_layers_on_the_card_match_the_cpu(lm_card, fn, dtype):
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    g = torch.Generator().manual_seed(1)
+
+    def x(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dtype)
+
+    if fn.startswith("norm"):
+        cfg = _smoke_cfg(dtype, norm_type="rmsnorm" if fn == "norm_rms"
+                         else "layernorm")
+        p = _params(cfg, lambda c, g: L.init_norm(c, "cpu"))
+        args = (p, x(3, 7, cfg.d_model, scale=2.0))
+        _same_on_card(lambda p, h: L.apply_norm(p, h, cfg), args, dtype,
+                      lm_card)
+    elif fn == "rope":
+        # angles reach 5,000 rad, whose float32 ulp is 2^-11: the card's and
+        # the CPU's pow / cos may each be an ulp apart there, so float32
+        # holds to two ulps of the angle times the largest |x1| + |x2|
+        pos = torch.randint(0, 5000, (2, 40), generator=g)
+        h = x(2, 40, 4, 160)
+        tol = None
+        if dtype == torch.float32:
+            pair = sum(h.abs().chunk(2, dim=-1)).max().item()
+            tol = dict(atol=2 * 2.0 ** -11 * pair, rtol=0)
+        _same_on_card(lambda h, q: L.apply_rope(h, q, 1e4), (h, pos), dtype,
+                      lm_card, tol)
+    elif fn in ("swiglu", "squared_relu", "gelu_bias"):
+        cfg = _smoke_cfg(dtype, mlp_type=fn.removesuffix("_bias"),
+                         use_bias=fn.endswith("_bias"))
+        p = _params(cfg, L.init_mlp)
+        _same_on_card(lambda p, h: L.apply_mlp(p, h, cfg),
+                      (p, x(2, 9, cfg.d_model)), dtype, lm_card)
+    elif fn.startswith("flash"):
+        q, k, v = (x(2, 37, 4, 16, scale=2.0) for _ in range(3))
+        _same_on_card(lambda q, k, v: L.flash_attention(
+            q, k, v, causal=fn == "flash_causal", chunk=16), (q, k, v),
+            dtype, lm_card)
+    elif fn == "attention_fwd":
+        cfg = _smoke_cfg(dtype, use_bias=True, use_qk_norm=True)
+        p = _params(cfg, L.init_attention)
+        pos = torch.arange(24).expand(2, 24)
+        _same_on_card(lambda p, h, pos: L.attention_fwd(
+            p, h, cfg, positions=pos, return_kv=True)[0],
+            (p, x(2, 24, cfg.d_model), pos), dtype, lm_card)
+    elif fn.startswith("decode"):
+        cfg = _smoke_cfg(dtype, use_bias=True)
+        p = _params(cfg, L.init_attention)
+        cache = {"k": x(2, 20, 2, 16), "v": x(2, 20, 2, 16)}
+        pos = 12 if fn == "decode_inside" else 20
+
+        def step(p, h, cache):
+            y, c = L.gqa_decode_attention(p, h, {k: v.clone() for k, v in
+                                                 cache.items()}, pos, cfg)
+            return y, c["k"], c["v"]
+        _same_on_card(step, (p, x(2, 1, cfg.d_model), cache), dtype,
+                      lm_card)
+    else:
+        cfg = _smoke_cfg(dtype, vocab_size=250)
+        table = x(256, cfg.d_model, scale=0.5)
+        tok = torch.randint(0, 250, (3, 1), generator=g)
+        _same_on_card(lambda t, tab: M.logits_fn(M.embed(t, tab), tab, cfg),
+                      (tok, table), dtype, lm_card)
+
+
+def test_stablelm_two_layers_full_width_on_the_card_matches_the_cpu(lm_card):
+    """``stablelm_12b`` at full width, 2 layers, float32: prefill over two
+    attention chunks (1040 tokens) and 3 decode steps on padded caches,
+    the CPU fed the card's tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("stablelm_12b").with_(num_layers=2, dtype="float32")
+    mdl = M.build(cfg, lm_card, torch.Generator(device=lm_card).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1040),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in (lm_card, "cpu"):
+        mdl.to(dev)
+        logits, caches = mdl.prefill({"tokens": tokens})
+        caches = M.pad_caches(caches, 1043)
+        out = [logits.cpu()]
+        for t in range(3):
+            tok = runs[0][t].argmax(-1) if runs else out[-1].argmax(-1)
+            logits, caches = mdl.decode(caches, tok, 1040 + t)
+            out.append(logits.cpu())
+        runs.append(out)
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_kb_linearizer_on_a_card_kb_matches_the_cpu(card):
+    from repro_torch.data.pipeline import KBLinearizer
+    streams = []
+    for device in (card, "cpu"):
+        kb = EngineKB(LUBM_L, lubm_facts(n_univ=2), device=device)
+        materialize(kb, mode="tg")
+        lin = KBLinearizer(kb, 4, 64, seed=1)
+        streams.append((lin.vocab_size, lin.stream, lin.next()["tokens"]))
+    (vg, sg, bg), (vc, sc, bc) = streams
+    assert vg == vc
+    assert np.array_equal(sg, sc) and np.array_equal(bg, bc)

@@ -64,6 +64,23 @@ def test_relation_defaults_to_the_card(monkeypatch):
     assert Relation.from_numpy(rows, device="cpu").device.type == "cpu"
 
 
+def test_models_and_serving_default_to_the_card(monkeypatch):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("stablelm_12b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve(cfg, 2, 8, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "stablelm_12b", "--smoke"])
+    assert build(cfg, device="cpu").device.type == "cpu"
+    gen, _, _ = serve.serve(cfg, 2, 8, 2, device="cpu")
+    assert gen.shape == (2, 2)
+
+
 @pytest.mark.parametrize("how", ["tg_linear", "dist", "REPRO_DIST"])
 def test_unported_features_raise(how, monkeypatch):
     """The sharded executor runs behind ``backend="dist"`` and

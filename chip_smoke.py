@@ -104,12 +104,34 @@ Phases, each fatal on failure:
    (each float32 run's decode also within ``F32_RMS`` of its
    re-prefill, and its planted fault above it).  It adds the ``serve``
    line and a ``launches_serve`` key to each kernel row.
+13. serving MoE and MLA LMs (``models/moe.py`` and MLA; no kernel of
+   their own): phase 12's KB materialized and linearized again (every
+   kernel must launch, the tokens equal phase 12's), served by
+   ``kb_moe_mla`` (deepseek's layer pattern at ``lm_100m``'s width: MLA,
+   1 dense layer, then 16 routed experts top-4 and 1 shared), float32 on
+   the card against the CPU fed the card's tokens (every routing
+   difference a near-tie on the CPU's probabilities, the rows without one
+   held as in phase 12), then bfloat16, timed.  ``qwen3_moe_30b_a3b``'s
+   ``CONFIG`` at full width and depth and ``deepseek_v3_671b``'s at full
+   width and 4 layers (3 dense, 1 MoE; no MTP head), in bfloat16: prefill
+   8 x 2048 cold and warm, 32 greedy tokens on caches padded to 2048 +
+   32, finite logits, peak memory, one decode step profiled, and the
+   first decode step's cache rows against a re-prefill's within
+   ``BF16_REL`` in the layers capacity does not reach (qwen3: layer 0;
+   deepseek: all 4), with the planted fault above it; the logits' ratio
+   is printed, not held.  Then each at capacity factor E / k, where no
+   expert overflows, over 8 x 128: decode against a re-prefill in every
+   layer's cache row and the logits, within ``BF16_REL``, the planted
+   fault above it (a row whose token a bfloat16 near-tie routes to other
+   experts in the two is held up to that layer).  A 2-layer float32 copy
+   of qwen3 at full width on the card against the CPU.  It adds the ``serve_moe`` line and a
+   ``launches_serve_moe`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
-``{"serve": {...}}`` line, a
+``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
 ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
@@ -1595,18 +1617,20 @@ def logits_agree(got, want, tol) -> dict:
             "within_tol": bool((diff <= tol * (1 + want.abs())).all())}
 
 
-def compare_runs(card, cpu, tol) -> dict:
+def compare_runs(card, cpu, tol, skip_rows=()) -> dict:
     """The CPU run (fed the card's tokens) against the card's: tokens equal
     wherever the CPU's top-2 margin exceeds ``tol``, and the kept logits
-    within ``tol``."""
-    sure = cpu["margins"] > tol
+    within ``tol``, in every batch row but ``skip_rows``."""
+    rows = torch.ones(cpu["tokens"].shape[0], dtype=torch.bool)
+    rows[list(skip_rows)] = False
+    sure = (cpu["margins"] > tol) & rows[:, None]
     bad = int((card["tokens"][sure] != cpu["tokens"][sure]).sum())
-    agree = [logits_agree(card["logits"][t], cpu["logits"][t], tol)
-             for t in cpu["logits"]]
+    agree = [logits_agree(card["logits"][t][rows], cpu["logits"][t][rows],
+                          tol) for t in cpu["logits"]]
     return {"tokens_compared": int(sure.sum()),
             "near_ties": int((~sure).sum()), "token_mismatches": bad,
             "max_abs_err_logits": max(a["max_abs_err"] for a in agree),
-            "tol": tol,
+            "tol": tol, "rows_compared": int(rows.sum()),
             "ok": bad == 0 and all(a["within_tol"] for a in agree)
             and card["finite"] and cpu["finite"]}
 
@@ -1622,94 +1646,226 @@ def rms(x) -> float:
     return float(x.double().square().mean().sqrt())
 
 
-def decode_vs_reprefill(mdl, tokens, run) -> dict:
+def held_layers(cfg) -> slice:
+    """The layers whose cache row a decode step must write as a re-prefill
+    does.  In a MoE model whose experts can overflow, only those up to the
+    first MoE layer: decode routes B tokens at a capacity of its own (C = 1
+    for B = 8 at top-8 of 128 or 256 experts), a re-prefill B (S + 1)
+    tokens at another, so the two drop different assignments, and every
+    later layer's input differs (the reference's semantics, ROADMAP Queue
+    3).  At capacity factor E / k or more, C >= T and nothing drops."""
+    if cfg.family == "moe" and \
+            cfg.capacity_factor * cfg.top_k < cfg.num_experts:
+        return slice(0, cfg.num_dense_layers + 1)
+    return slice(None)
+
+
+def rows_at(caches, S) -> dict:
+    """Every cache's rows at position ``S`` (L, B, ...), a float32 copy."""
+    return {n: c[:, :, S].to(torch.float32, copy=True)
+            for n, c in caches.items()}
+
+
+def reprefill_outputs(mdl, tokens, run) -> dict:
     """The first decode step (``run`` kept the logits of positions 0 and 1
-    and its padded caches) against a prefill of the prompt and the token it
-    was fed: max |a - b| and rms(a - b) / rms(b) of the logits, with tokens
-    equal wherever the re-prefill's top-2 margin exceeds twice that max,
-    and rms(a - b) / rms(b) of the K/V row the step wrote at position S.
-    Beside them, a planted fault: the same step on the prompt-length
-    caches, which writes no K/V and so leaves the token out of its own
-    attention (the reference's contract, ROADMAP Queue 3).  Its logits'
-    ratio is what the logit check would read for that fault; its K/V row
-    stays the padding's zeros, a ratio of 1."""
+    and its padded caches) beside a prefill of the prompt and the token it
+    was fed (``again``) and a planted fault (``fault``): the same step on
+    the prompt-length caches, which writes no row and so leaves the token
+    out of its own attention (the reference's contract, ROADMAP Queue 3);
+    the row it leaves at S is the padding's zeros.  For each: the logits
+    (B, V) and the cache rows at S (``rows_at``), float32."""
+    from repro_torch.models.model import pad_caches
     V, S = mdl.cfg.vocab_size, tokens.shape[1]
     fed = run["tokens"][:, 0].to(tokens.device)
-    ref, ref_caches = mdl.prefill({"tokens": torch.cat([tokens, fed[:, None]],
-                                                       1)})
+    again, caches = mdl.prefill({"tokens": torch.cat([tokens, fed[:, None]],
+                                                     1)})
+    again_rows = rows_at(caches, S)
+    del caches
     caches = run["caches"]
-    kv = max(rms(caches[n][:, :, S].float() - ref_caches[n][:, :, S].float())
-             / rms(ref_caches[n][:, :, S]) for n in ("k", "v"))
-    del ref_caches
-    fault, _ = mdl.decode({n: c[:, :, :S] for n, c in caches.items()}, fed,
-                          S)
-    ref, fault = ref.float().cpu()[:, :V], fault.float().cpu()[:, :V]
-    got = run["logits"][1][:, :V]
+    fault, fault_caches = mdl.decode({n: c[:, :, :S] for n, c in
+                                      caches.items()}, fed, S)
+    fault_rows = rows_at(pad_caches(fault_caches, S + 1), S)
+    del fault_caches
+    return {"step": (run["logits"][1][:, :V], rows_at(caches, S)),
+            "again": (again.float().cpu()[:, :V], again_rows),
+            "fault": (fault.float().cpu()[:, :V], fault_rows)}
+
+
+def against_reprefill(out, name, held):
+    """rms(a - b) / rms(b) of ``out[name]``'s logits and of its cache rows
+    picked by ``held`` (L, B), over all of them and in the worst layer,
+    against the re-prefill's (``out["again"]``)."""
+    (ref, ref_rows), (got, got_rows) = out["again"], out[name]
+
+    def rel(a, b):
+        return rms(a - b) / rms(b)
+    layers = [i for i in range(len(held)) if held[i].any()]
+    return (rel(got, ref),
+            max(rel(got_rows[n][held], r[held]) for n, r in ref_rows.items()),
+            max(rel(got_rows[n][i][held[i]], r[i][held[i]])
+                for n, r in ref_rows.items() for i in layers))
+
+
+def held_against(out, held) -> dict:
+    """``reprefill_outputs``' step and fault against the re-prefill, on the
+    cache rows at S picked by ``held`` (L, B) and every row's logits: max
+    |a - b| and rms(a - b) / rms(b) of the logits, with tokens equal
+    wherever the re-prefill's top-2 margin exceeds twice that max, and
+    rms(a - b) / rms(b) of the held cache rows, over all of them
+    (``kv_rms_rel_err``) and in the worst layer."""
+    ref, got = out["again"][0], out["step"][0]
+    rel, kv, kv_worst = against_reprefill(out, "step", held)
+    fault_rel, fault_kv, _ = against_reprefill(out, "fault", held)
     top2 = ref.topk(2, dim=-1).values
     err = float((got - ref).abs().max())
     sure = (top2[:, 0] - top2[:, 1]) > 2 * err
     return {"max_abs_err": err,
             "within_tol": logits_agree(got, ref, F32_TOL)["within_tol"],
-            "rms_rel_err": rms(got - ref) / rms(ref),
-            "kv_rms_rel_err": kv,
-            "fault_rms_rel_err": rms(fault - ref) / rms(ref),
+            "rms_rel_err": rel, "kv_rms_rel_err": kv,
+            "kv_worst_layer_rms_rel_err": kv_worst,
+            "kv_rows_held": int(held.sum()), "fault_rms_rel_err": fault_rel,
+            "fault_kv_rms_rel_err": fault_kv,
             "tokens_compared": int(sure.sum()),
             "token_mismatches": int((got.argmax(-1)[sure]
                                      != ref.argmax(-1)[sure]).sum())}
 
 
+def decode_vs_reprefill(mdl, tokens, run) -> dict:
+    """The first decode step against a re-prefill (``held_against``), on
+    every cache row of the ``held_layers``."""
+    out = reprefill_outputs(mdl, tokens, run)
+    held = torch.zeros(mdl.cfg.num_layers, tokens.shape[0], dtype=torch.bool)
+    held[held_layers(mdl.cfg)] = True
+    return held_against(out, held.to(tokens.device))
+
+
+class RoutingLog:
+    """Records each MoE routing call's top experts and probabilities (on
+    the device that ran it) while it is entered.  With ``alter``, a
+    planted fault, each call's (top_p, top_e) is first replaced by
+    ``alter(top_p, top_e, E)``."""
+
+    def __init__(self, alter=None):
+        self.alter = alter
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.route, self.calls = moe, moe.route, []
+
+        def wrapped(router, xt, cfg):
+            out = self.route(router, xt, cfg)
+            if self.alter:
+                out = (*self.alter(out[0], out[1], cfg.num_experts),
+                       *out[2:])
+            self.calls.append((out[1].clone(), out[2].clone()))
+            return out
+        moe.route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+# faults planted in a decode step's MoE layers
+MOE_FAULTS = {
+    # routing: each assignment sent to the next expert over
+    "misrouted": lambda p, e, E: (p, (e + 1) % E),
+    # combine: every expert's output weighed by 1, not its probability
+    "unweighted": lambda p, e, E: (torch.ones_like(p), e)}
+
+
+def moe_layers(cfg) -> int:
+    return cfg.num_layers - cfg.num_dense_layers if cfg.family == "moe" \
+        else 0
+
+
+def routing_differences(card_calls, cpu_calls, batch, expected) -> dict:
+    """The card's routing against the CPU's, call by call (``expected``
+    calls on each, or it fails: a log that missed the calls compares
+    nothing): the assignments
+    whose expert differs, and the batch rows they fall in.  Each token
+    with a difference must be a near-tie on the CPU's own probabilities:
+    at the first rank j where its experts differ, the j-th and (j+1)-th
+    largest probabilities within ``NEAR_TIE`` of each other, relative (at
+    j = k - 1, the k-th and (k+1)-th); and up to the first call with a
+    difference, the two devices' probabilities must agree within
+    ``NEAR_TIE`` (``all_near_ties``).  ``flips`` lists [call, token,
+    rank, relative gap] of the first 16 differences."""
+    if not len(card_calls) == len(cpu_calls) == expected:
+        fail(f"{len(card_calls)} routing calls on the card, "
+             f"{len(cpu_calls)} on the CPU, {expected} expected")
+    assignments, rows, ties, flips, noise = 0, set(), True, [], 0.0
+    for i, ((e_g, p_g), (e_c, p_c)) in enumerate(zip(card_calls,
+                                                     cpu_calls)):
+        if not flips:
+            # the devices' disagreement before any routing differs: the
+            # largest |card - CPU| of a probability, relative to its
+            # token's largest
+            noise = max(noise, float(((p_g.cpu() - p_c).abs().amax(-1)
+                                      / p_c.amax(-1)).max()))
+        bad = e_g.cpu() != e_c
+        assignments += int(bad.sum())
+        per_row = len(e_c) // batch
+        for t in bad.any(1).nonzero().flatten().tolist():
+            j = int(bad[t].nonzero()[0])
+            ps = p_c[t].double().sort(descending=True).values
+            gap = float((ps[j] - ps[j + 1]) / ps[j])
+            ties = ties and gap <= NEAR_TIE
+            flips.append([i, t, j, gap])
+            rows.add(t // per_row)
+    return {"calls": len(cpu_calls), "differing_assignments": assignments,
+            "differing_tokens": len(flips), "rows": sorted(rows),
+            "flips": flips[:16], "prob_rel_diff": noise,
+            "all_near_ties": ties and noise <= NEAR_TIE}
+
+
 def card_against_cpu(cfg, tokens, gen):
     """``cfg`` (float32) with weights drawn on the card from seed 0, served
     there (TF32 off) and its first decode step held against a re-prefill
-    (to ``F32_TOL`` and ``F32_RMS``, and the planted fault must read above
-    ``F32_RMS``), then moved to the CPU and served again, fed the card's
-    tokens.  Returns the comparison."""
+    (to ``F32_RMS`` on the rows of the ``held_layers``, and the planted
+    fault must read above it; the logits too, to ``F32_TOL`` and
+    ``F32_RMS``, where every layer is held), then moved to the CPU and
+    served again, fed the card's tokens.  The routing of a MoE model is
+    held call by call (``routing_differences``), and the rows where it
+    differs are left out of the comparison.  Returns the comparison."""
     from repro_torch.models.model import build
     mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
-    card = serve_run(mdl, tokens, gen, keep=(0, 1, gen))
+    with RoutingLog() as routed_card:
+        card = serve_run(mdl, tokens, gen, keep=(0, 1, gen))
     again = decode_vs_reprefill(mdl, tokens, card)
     card.pop("caches")
     mdl.to("cpu")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cpu = serve_run(mdl, tokens.cpu(), gen, feed=card["tokens"][:, :-1],
-                    keep=(0, 1, gen))
-    rec = compare_runs(card, cpu, F32_TOL)
-    rec["ok"] = rec["ok"] and again["within_tol"] \
-        and not again["token_mismatches"] \
-        and again["rms_rel_err"] <= F32_RMS \
+    with RoutingLog() as routed_cpu:
+        cpu = serve_run(mdl, tokens.cpu(), gen, feed=card["tokens"][:, :-1],
+                        keep=(0, 1, gen))
+    routing = routing_differences(routed_card.calls, routed_cpu.calls,
+                                  tokens.shape[0],
+                                  moe_layers(cfg) * (1 + gen))
+    rec = compare_runs(card, cpu, F32_TOL, routing["rows"])
+    rec["ok"] = rec["ok"] and routing["all_near_ties"] \
         and again["kv_rms_rel_err"] <= F32_RMS \
-        and again["fault_rms_rel_err"] > F32_RMS
-    return {**rec, "decode_vs_reprefill": {**again, "tol_rms_rel": F32_RMS},
+        and again["fault_kv_rms_rel_err"] > F32_RMS
+    if held_layers(cfg) == slice(None):
+        rec["ok"] = rec["ok"] and again["within_tol"] \
+            and not again["token_mismatches"] \
+            and again["rms_rel_err"] <= F32_RMS \
+            and again["fault_rms_rel_err"] > F32_RMS
+    return {**rec, "routing": routing,
+            "decode_vs_reprefill": {**again, "tol_rms_rel": F32_RMS},
             "card": timing(card, tokens.shape[0]),
             "cpu_s": time.perf_counter() - t0}
 
 
-def serve_phase(facts, lubm_nfacts, lubm_stats):
-    """Phase 12.  (a) LUBM-L ``n_univ=2000`` materialized on the card with
-    ``tg`` (held to phase 3's facts and counts), linearized by the port's
-    ``KBLinearizer(kb, 8, 256)`` and served by ``lm_100m`` at the
-    linearizer's vocabulary: prefill and 32 greedy tokens on caches padded
-    to 256 + 32, in float32 on the card against the CPU, then in bfloat16
-    on the card, timed after a warm-up.  (b) ``stablelm_12b``'s ``CONFIG``
-    at full width and depth in bfloat16: a cold prefill of 8 x 2048, then
-    a warm one and 64 greedy tokens on caches padded to 2048 + 64, timed;
-    finite logits; the first decode step against a re-prefill of the
-    prompt and its next token (``decode_vs_reprefill``).  Then a 2-layer
-    copy at full width in float32 on the card against the CPU.  Returns the ``serve`` record and
-    the kernel launches of (a)'s path (the LM side has no kernel)."""
+def kb_tokens(facts, lubm_nfacts, lubm_stats):
+    """LUBM-L materialized on the card with ``tg`` (held to phase 3's facts
+    and counts) and linearized by the port's ``KBLinearizer(kb, 8, 256)``:
+    its first batch of tokens on the card, the linearizer, and the
+    materialization's and linearization's seconds."""
     from repro_torch import EngineKB, materialize
-    from repro_torch.configs.base import get_config
     from repro_torch.data.kb_sources import LUBM_L
     from repro_torch.data.pipeline import KBLinearizer
-    from repro_torch.kernels import ops as KO
-    from repro_torch.models.model import build
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # (a) KB -> LM
-    KO.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     kb = EngineKB(LUBM_L, facts)
     st = materialize(kb, mode="tg")
@@ -1724,33 +1880,63 @@ def serve_phase(facts, lubm_nfacts, lubm_stats):
     t_lin = time.perf_counter() - t0
     del kb
     tokens = torch.from_numpy(data.next()["tokens"]).cuda()
-    cfg = lm_100m(data.vocab_size)
+    return tokens, data, {"facts": lubm_nfacts, "materialize_s": t_mat,
+                          "linearize_s": t_lin,
+                          "stream_tokens": len(data.stream)}
+
+
+CONFIG_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads",
+               "head_dim", "d_ff", "vocab_size", "attn_chunk", "dtype",
+               "attn_type", "q_lora_rank", "kv_lora_rank", "qk_nope_dim",
+               "qk_rope_dim", "v_head_dim", "num_dense_layers", "dense_d_ff",
+               "num_experts", "top_k", "num_shared_experts", "moe_d_ff")
+
+
+def kb_lm_path(name, make_cfg, facts, lubm_nfacts, lubm_stats):
+    """The KB -> LM path, its kernel launches counted from 0: the KB's
+    tokens (``kb_tokens``) served by ``make_cfg(vocabulary)``, prefill and
+    ``KB_LM``'s greedy tokens on padded caches, in float32 on the card
+    against the CPU (``card_against_cpu``), then in bfloat16 on the card,
+    timed after a warm-up.  Returns the record, the launches and the
+    tokens."""
+    from repro_torch.kernels import ops as KO
+    from repro_torch.models.model import build
+    KO.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, data, kb_rec = kb_tokens(facts, lubm_nfacts, lubm_stats)
+    cfg = make_cfg(data.vocab_size)
     f32 = card_against_cpu(cfg.with_(dtype="float32"), tokens,
-                                    KB_LM["gen"])
+                           KB_LM["gen"])
     mdl = build(cfg.with_(dtype="bfloat16"), "cuda",
                 torch.Generator(device="cuda").manual_seed(0))
     serve_run(mdl, tokens, 2)                          # warm-up
     bf16 = serve_run(mdl, tokens, KB_LM["gen"])
     launches = KO.launch_counts()
-    kb_lm = {"config": {k: getattr(cfg, k) for k in (
-                 "num_layers", "d_model", "num_heads", "num_kv_heads",
-                 "head_dim", "d_ff", "vocab_size", "attn_chunk")},
-             "facts": lubm_nfacts, "materialize_s": t_mat,
-             "linearize_s": t_lin, "stream_tokens": len(data.stream),
-             **KB_LM, "float32_card_vs_cpu": f32,
-             "bfloat16": {**timing(bf16, KB_LM["batch"]),
-                          "finite": bf16["finite"]},
-             "peak_bytes": torch.cuda.max_memory_allocated(),
-             "launches": launches}
-    del mdl
+    rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
+           "params": sum(p.numel() for p in mdl.parameters()),
+           **kb_rec, **KB_LM, "float32_card_vs_cpu": f32,
+           "bfloat16": {**timing(bf16, KB_LM["batch"]),
+                        "finite": bf16["finite"]},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    del mdl, data
     torch.cuda.empty_cache()
-    log(f"[serve] kb_lm {json.dumps(kb_lm)}")
+    log(f"[serve] {name} {json.dumps(rec)}")
     if not f32["ok"] or not bf16["finite"]:
-        fail(f"serve kb_lm: {kb_lm}")
+        fail(f"serve {name}: {rec}")
+    return rec, launches, tokens
 
-    # (b) stablelm_12b at full width and depth
-    cfg = get_config("stablelm_12b")
-    B, S, gen = FULL["batch"], FULL["prompt"], FULL["gen"]
+
+def full_width(name, cfg, shape, dropless=None):
+    """``cfg`` in bfloat16 on the card, random weights from seed 0: a cold
+    prefill of ``shape``'s batch x prompt, then a warm one and ``gen``
+    greedy tokens on padded caches, timed; the first decode step against
+    a re-prefill (``decode_vs_reprefill``); one more decode step
+    profiled; with ``dropless``, a MoE model's decode against a
+    re-prefill where no expert overflows (``dropless_vs_reprefill``); the
+    peak memory.  Returns the record."""
+    from repro_torch.models.model import build
+    B, S, gen = shape["batch"], shape["prompt"], shape["gen"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
@@ -1766,37 +1952,218 @@ def serve_phase(facts, lubm_nfacts, lubm_stats):
     run = serve_run(mdl, tokens, gen, keep=(0, 1))
     again = decode_vs_reprefill(mdl, tokens, run)
     last = run["tokens"][:, -1].cuda()
-    prof = profile_run("stablelm_12b decode step", lambda: mdl.decode(
+    prof = profile_run(f"{name} decode step", lambda: mdl.decode(
         run.pop("caches"), last, S + gen - 1))
-    full = {"config": {k: getattr(cfg, k) for k in (
-                "num_layers", "d_model", "num_heads", "num_kv_heads",
-                "head_dim", "d_ff", "vocab_size", "attn_chunk", "dtype")},
-            "params": sum(p.numel() for p in mdl.parameters()), **FULL,
-            "build_s": t_build, "prefill_cold_ms": t_cold * 1e3,
-            **timing(run, B), "finite": run["finite"],
-            "decode_step_profile": prof,
-            "decode_vs_reprefill": {**again, "tol_rms_rel": BF16_REL},
-            "peak_bytes": torch.cuda.max_memory_allocated()}
+    extra = {}
+    if dropless:
+        extra["dropless_vs_reprefill"] = dropless_vs_reprefill(mdl, dropless)
+    rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
+           "params": sum(p.numel() for p in mdl.parameters()), **shape,
+           "build_s": t_build, "prefill_cold_ms": t_cold * 1e3,
+           **timing(run, B), "finite": run["finite"],
+           "decode_step_profile": prof,
+           "decode_vs_reprefill": {**again, "tol_rms_rel": BF16_REL},
+           **extra, "peak_bytes": torch.cuda.max_memory_allocated()}
     del mdl, run, tokens
     torch.cuda.empty_cache()
-    log(f"[serve] stablelm_12b {json.dumps(full)}")
-    if not (full["finite"] and again["rms_rel_err"] <= BF16_REL
-            and again["kv_rms_rel_err"] <= BF16_REL
-            and again["fault_rms_rel_err"] > BF16_REL):
-        fail(f"serve stablelm_12b: {full}")
+    log(f"[serve] {name} {json.dumps(rec)}")
+    return rec
 
+
+def dropless_vs_reprefill(mdl, shape) -> dict:
+    """Decode against a re-prefill where nothing drops: the MoE model
+    ``mdl`` run at capacity factor E / k, so C = T in the decode step and
+    in the re-prefill alike, over ``shape``'s batch x prompt (random
+    tokens from seed 3).  Every layer's cache row at S and the logits are
+    held (``held_against``).  Besides the planted fault of
+    ``reprefill_outputs``, the ``MOE_FAULTS``: the same step with its MoE
+    layers' routing or combine broken.  Each MoE layer's routing of the
+    fed token is logged in the step and the re-prefill, and the tokens
+    that the two send to another set of experts (bfloat16 near-ties
+    between two paths of different shapes) are counted."""
+    cfg = mdl.cfg
+    B, S, L, V = shape["batch"], shape["prompt"], cfg.num_layers, \
+        cfg.vocab_size
+    n_moe, dev = moe_layers(cfg), mdl.device
+    tokens = torch.randint(0, V, (B, S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(3))
+    mdl.cfg = cfg.with_(capacity_factor=cfg.num_experts / cfg.top_k)
+    faults = {}
+    try:
+        with RoutingLog() as step:      # the prefill, then the decode step
+            run = serve_run(mdl, tokens, 1, keep=(0, 1))
+        with RoutingLog() as again:     # the re-prefill, then the fault
+            out = reprefill_outputs(mdl, tokens, run)
+        fed = run["tokens"][:, 0].to(dev)
+        for name, alter in MOE_FAULTS.items():
+            with RoutingLog(alter) as bad:
+                logits, caches = mdl.decode(run["caches"], fed, S)
+            faults[name] = len(bad.calls)
+            out[name] = (logits.float().cpu()[:, :V], rows_at(caches, S))
+    finally:
+        mdl.cfg = cfg
+    del run, caches
+    if not len(step.calls) == len(again.calls) == 2 * n_moe or \
+            set(faults.values()) != {n_moe}:
+        fail(f"dropless: {len(step.calls)}, {len(again.calls)} and "
+             f"{faults} routing calls; {2 * n_moe} and {n_moe} expected")
+    rerouted = 0
+    for m in range(n_moe):
+        e_step = step.calls[n_moe + m][0].sort(-1).values
+        e_again = again.calls[m][0].view(B, S + 1, -1)[:, S]
+        rerouted += int((e_step != e_again.sort(-1).values).any(-1).sum())
+    held = torch.ones(L, B, dtype=torch.bool, device=dev)
+    rec = held_against(out, held)
+    for name in MOE_FAULTS:
+        rel, _, worst = against_reprefill(out, name, held)
+        rec[f"{name}_rms_rel_err"] = rel
+        rec[f"{name}_kv_worst_layer_rms_rel_err"] = worst
+    return {**shape, "capacity_factor": cfg.num_experts / cfg.top_k,
+            "rerouted_tokens": rerouted, "routings": n_moe * B, **rec,
+            "tol_rms_rel": BF16_REL}
+
+
+def two_layers_against_cpu(name, cfg):
+    """A 2-layer float32 copy of ``cfg`` at full width, card against CPU
+    (``card_against_cpu``) over ``FULL_CPU``'s batch x prompt."""
     tokens = torch.randint(0, cfg.vocab_size, (FULL_CPU["batch"],
                                                FULL_CPU["prompt"]),
                            device="cuda", generator=torch.Generator(
                                device="cuda").manual_seed(2))
     two = card_against_cpu(cfg.with_(num_layers=2, dtype="float32"),
-                              tokens, FULL_CPU["gen"])
-    full["two_layers_float32_card_vs_cpu"] = {**FULL_CPU, **two}
+                           tokens, FULL_CPU["gen"])
     torch.cuda.empty_cache()
-    log(f"[serve] stablelm_12b 2 layers {json.dumps(two)}")
+    log(f"[serve] {name} 2 layers {json.dumps(two)}")
     if not two["ok"]:
-        fail(f"serve stablelm_12b 2 layers: card and CPU differ: {two}")
-    return {"kb_lm": kb_lm, "stablelm_12b": full}, launches
+        fail(f"serve {name} 2 layers: card and CPU differ: {two}")
+    return {**FULL_CPU, **two}
+
+
+def serve_phase(facts, lubm_nfacts, lubm_stats):
+    """Phase 12.  (a) LUBM-L ``n_univ=2000`` materialized on the card and
+    linearized (``kb_tokens``), served by ``lm_100m`` at the linearizer's
+    vocabulary: prefill and 32 greedy tokens on caches padded to 256 + 32,
+    in float32 on the card against the CPU, then in bfloat16 on the card,
+    timed after a warm-up.  (b) ``stablelm_12b``'s ``CONFIG`` at full
+    width and depth in bfloat16 (``full_width``, 8 x 2048 + 64), its
+    logits and cache rows within ``BF16_REL`` of a re-prefill and its
+    planted fault above it.  Then a 2-layer copy at full width in float32
+    on the card against the CPU.  Returns the ``serve`` record, the kernel
+    launches of (a)'s path (the LM side has no kernel) and (a)'s tokens."""
+    from repro_torch.configs.base import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) KB -> LM
+    kb_lm, launches, tokens = kb_lm_path("kb_lm", lm_100m, facts,
+                                         lubm_nfacts, lubm_stats)
+
+    # (b) stablelm_12b at full width and depth
+    cfg = get_config("stablelm_12b")
+    full = full_width("stablelm_12b", cfg, FULL)
+    again = full["decode_vs_reprefill"]
+    if not (full["finite"] and again["rms_rel_err"] <= BF16_REL
+            and again["kv_rms_rel_err"] <= BF16_REL
+            and again["fault_rms_rel_err"] > BF16_REL):
+        fail(f"serve stablelm_12b: {full}")
+    full["two_layers_float32_card_vs_cpu"] = two_layers_against_cpu(
+        "stablelm_12b", cfg)
+    return {"kb_lm": kb_lm, "stablelm_12b": full}, launches, tokens
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving MoE and MLA LMs
+# ---------------------------------------------------------------------------
+FULL_MOE = {"batch": 8, "prompt": 2048, "gen": 32}  # qwen3 / deepseek
+DROPLESS = {"batch": 8, "prompt": 128}  # at C = T: deepseek's one MoE layer
+                                        # takes about 13 GB of transients
+DEEPSEEK_LAYERS = 4   # 3 dense + 1 MoE: one MoE layer is 22.5 GB in
+                      # bfloat16, the 58 of the full model 1.3 TB
+NEAR_TIE = 2e-5       # card against CPU, float32: the routing
+                      # probabilities agree within this, relative to each
+                      # token's largest, and a token may reach another
+                      # expert only where two adjacent probabilities are
+                      # this close, relative.  The devices' float32
+                      # probabilities differ by up to 5.6e-6 at qwen3's
+                      # width (H100), and a flip at 1.9e-6 was seen, so
+                      # 1e-6 could not tell a fault from rounding
+
+
+def dropless_held(rec) -> bool:
+    """``dropless_vs_reprefill``'s gate: the logits and every cache row,
+    layer by layer, within ``BF16_REL`` of the re-prefill; the K/V fault's
+    rows above it (its logits are printed, not held: with random weights
+    attention is near uniform over the prompt, and leaving one token out
+    moved qwen3's logits by only 0.025 on the H100, its sound step 0.017);
+    each MoE fault above it, in the logits or the worst layer."""
+    return rec["rms_rel_err"] <= BF16_REL \
+        and rec["kv_worst_layer_rms_rel_err"] <= BF16_REL \
+        and rec["fault_kv_rms_rel_err"] > BF16_REL \
+        and all(max(rec[f"{n}_rms_rel_err"],
+                    rec[f"{n}_kv_worst_layer_rms_rel_err"]) > BF16_REL
+                for n in MOE_FAULTS)
+
+
+def kb_moe_mla(vocab: int):
+    """``deepseek_v3_671b``'s layer pattern (MLA attention, dense layers
+    first, routed experts plus a shared one) at ``lm_100m``'s width and
+    the linearizer's vocabulary."""
+    return lm_100m(vocab).with_(
+        name="kb-moe-mla", family="moe", num_layers=4, attn_type="mla",
+        q_lora_rank=384, kv_lora_rank=128, qk_nope_dim=64, qk_rope_dim=32,
+        v_head_dim=64, num_dense_layers=1, dense_d_ff=2304, num_experts=16,
+        top_k=4, num_shared_experts=1, moe_d_ff=384)
+
+
+def serve_moe_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
+    """Phase 13.  (a) Phase 12's KB tokens, made again (equal to phase
+    12's), served by ``kb_moe_mla``: prefill and 32 greedy tokens on
+    caches padded to 256 + 32, float32 on the card against the CPU
+    (``card_against_cpu``: routing near-ties only, rows without a routing
+    difference within ``F32_TOL``), then bfloat16 on the card, timed.
+    (b) ``qwen3_moe_30b_a3b``'s ``CONFIG`` at full width and depth and
+    (c) ``deepseek_v3_671b``'s at full width and ``DEEPSEEK_LAYERS``
+    layers (no MTP head), both in bfloat16 (``full_width``, 8 x 2048 +
+    32): finite logits, the cache rows of the ``held_layers`` within
+    ``BF16_REL`` of a re-prefill and the planted fault above it; the
+    logits against the re-prefill are printed, not held (capacity, see
+    ``held_layers``); then the same model where no expert overflows,
+    every layer and the logits held (``dropless_vs_reprefill``,
+    ``dropless_held``).  Then qwen3's 2-layer float32 copy on the card
+    against the CPU.  Returns the ``serve_moe`` record and the kernel
+    launches of (a)'s path (the MoE and MLA layers have no kernel)."""
+    from repro_torch.configs.base import get_config
+    log(f"[serve_moe] allocated at start: {torch.cuda.memory_allocated()} "
+        f"bytes")
+
+    # (a) KB -> MoE / MLA LM
+    kb_moe, launches, tokens = kb_lm_path("kb_moe_mla", kb_moe_mla, facts,
+                                          lubm_nfacts, lubm_stats)
+    if not torch.equal(tokens, tokens_12):
+        fail("serve_moe: the KB's tokens differ from phase 12's")
+
+    # (b) qwen3_moe_30b_a3b at full width and depth, (c) deepseek_v3_671b
+    # at full width; decode against a re-prefill holds only the rows that
+    # capacity does not touch (``held_layers``), and every row where
+    # nothing overflows (``DROPLESS``)
+    out = {"kb_moe_mla": kb_moe}
+    for arch, layers in (("qwen3_moe_30b_a3b", None),
+                         ("deepseek_v3_671b", DEEPSEEK_LAYERS)):
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.with_(num_layers=layers)
+        rec = full_width(arch, cfg, FULL_MOE, DROPLESS)
+        again, dropless = rec["decode_vs_reprefill"], \
+            rec["dropless_vs_reprefill"]
+        if not (rec["finite"] and again["kv_rms_rel_err"] <= BF16_REL
+                and again["fault_kv_rms_rel_err"] > BF16_REL
+                and dropless_held(dropless)):
+            fail(f"serve_moe {arch}: {rec}")
+        out[arch] = rec
+    out["qwen3_moe_30b_a3b"]["two_layers_float32_card_vs_cpu"] = \
+        two_layers_against_cpu("qwen3_moe_30b_a3b",
+                               get_config("qwen3_moe_30b_a3b"))
+    return out, launches
 
 
 def main() -> int:
@@ -2040,7 +2407,8 @@ def main() -> int:
     del kb_g
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    served, launches_serve = serve_phase(facts, lubm_nfacts, lubm_stats)
+    served, launches_serve, tokens_12 = serve_phase(facts, lubm_nfacts,
+                                                    lubm_stats)
     for r in rows:
         r["launches_serve"] = launches_serve.get(r["name"], 0)
         r["launches"] += r["launches_serve"]
@@ -2049,6 +2417,23 @@ def main() -> int:
     if any(launches_serve[k] == 0 for k in KERNELS):
         fail(f"a kernel was never launched on the KB->LM path: "
              f"{launches_serve}")
+
+    # 13. serving MoE and MLA LMs: the KB's tokens served by a narrow MLA +
+    # MoE model (card against CPU), qwen3_moe_30b_a3b at full width and
+    # depth, deepseek_v3_671b at full width
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served_moe, launches_moe = serve_moe_phase(facts, lubm_nfacts,
+                                               lubm_stats, tokens_12)
+    del tokens_12
+    for r in rows:
+        r["launches_serve_moe"] = launches_moe.get(r["name"], 0)
+        r["launches"] += r["launches_serve_moe"]
+    log(f"[serve_moe] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_moe}")
+    if any(launches_moe[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched on the KB->MoE LM path: "
+             f"{launches_moe}")
 
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
@@ -2060,6 +2445,7 @@ def main() -> int:
     print(json.dumps({"tg_linear": tg_linear}))
     print(json.dumps({"dist": dist}))
     print(json.dumps({"serve": {**served, "card": smi}}))
+    print(json.dumps({"serve_moe": {**served_moe, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

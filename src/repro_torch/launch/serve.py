@@ -4,9 +4,9 @@
 Prefill + batched greedy decode, as ``python -m repro.launch.serve``: the
 same arguments, the same refusal of encoder-only configurations and the
 same output lines.  As there, the caches are as long as the prompt, so
-each generated token's K/V is not written and it attends to the prompt
-only (``gqa_decode_attention``).  Runs on the card unless ``--device``
-names another device.
+each generated token's cache row is not written and it attends to the
+prompt only (``gqa_decode_attention``, ``mla_decode_attention``).  Runs
+on the card unless ``--device`` names another device.
 """
 import argparse
 import time

@@ -1,5 +1,6 @@
-"""Dense NN layers of the port: norms, RoPE, MLPs, chunked (flash-style)
-attention and one-token decode attention over a KV cache.
+"""NN layers of the port: norms, RoPE, MLPs, chunked (flash-style)
+attention, one-token decode attention over a KV cache, and MLA (multi-head
+latent attention) with its latent cache.
 
 Counterpart of ``repro.models.layers`` on one device: there is no mesh, so
 the tensor-parallel degree is 1 and ``pad_to(H, 1) == H``.  Flags that only
@@ -278,3 +279,95 @@ def gqa_decode_attention(p, x, cache, pos: int, cfg):
     if "bo" in p:
         y = y + p["bo"]
     return y[:, None], {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3): queries and keys/values through low-rank latents; the
+# cache holds the normed KV latent and the shared RoPE key per position
+# ---------------------------------------------------------------------------
+def init_mla(cfg, generator) -> nn.ParameterDict:
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dt, dev = torch_dtype(cfg.dtype), generator.device
+    return nn.ParameterDict({
+        "wq_a": param(normal((d, qr), generator, dt)),
+        "q_a_norm": param(torch.ones(qr, device=dev)),
+        "wq_b": param(normal((qr, H, dn + dr), generator, dt)),
+        "wkv_a": param(normal((d, kvr + dr), generator, dt)),
+        "kv_a_norm": param(torch.ones(kvr, device=dev)),
+        "wk_b": param(normal((kvr, H, dn), generator, dt)),
+        "wv_b": param(normal((kvr, H, dv), generator, dt)),
+        "wo": param(normal((H, dv, d), generator, dt))})
+
+
+_rms = _qk_norm     # the reference's name for the latents' RMS norm
+
+
+def mla_fwd(p, x, cfg, *, positions, return_kv=False):
+    """MLA prefill, the non-absorbed form: per-head keys and values are
+    expanded from the latent and go through ``flash_attention`` with the
+    RoPE part of the key shared by every head.  x: (B,S,d).  With
+    ``return_kv`` also returns the cache rows (c_kv (B,S,kvr), k_rope
+    (B,S,dr))."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kvr = cfg.kv_lora_rank
+    q_lat = _rms(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_a_norm"])
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])   # (B,S,H,dn+dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])     # (B,S,kvr+dr)
+    c_kv = _rms(kv_a[..., :kvr], p["kv_a_norm"])
+    k_rope = apply_rope(kv_a[..., None, kvr:], positions, cfg.rope_theta)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    q_full = torch.cat([q[..., :dn], q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    out = flash_attention(q_full, k_full, v, causal=True,
+                          chunk=cfg.attn_chunk)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if return_kv:
+        return y, (c_kv, k_rope[:, :, 0])
+    return y
+
+
+def mla_decode_attention(p, x, cache, pos: int, cfg):
+    """One-token MLA decode, the absorbed form: the query's non-RoPE part
+    is taken into the latent space through ``wk_b``, scores are taken
+    against the latent cache plus the RoPE keys, and the context, taken in
+    latent space, goes back out through ``wv_b`` and ``wo``.  x: (B,1,d);
+    cache {"c_kv": (B,S,kvr), "k_rope": (B,S,dr)}.
+
+    The reference's sequence-sharded body at one shard: the token's
+    latent and RoPE key are written into the cache (in place) only where
+    ``0 <= pos < S``, and the token attends to the positions ``<= pos``.
+    Returns (y (B,1,d), cache)."""
+    B = x.shape[0]
+    dn, dr, kvr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    cc, ckr = cache["c_kv"], cache["k_rope"]
+    S = cc.shape[1]
+    x0 = x[:, 0]
+    at = torch.full((B, 1), pos, device=x.device)
+    q_lat = _rms(torch.einsum("bd,dr->br", x0, p["wq_a"]), p["q_a_norm"])
+    q = torch.einsum("br,rhk->bhk", q_lat, p["wq_b"])
+    q_rope = apply_rope(q[:, None, :, dn:], at, cfg.rope_theta)[:, 0]
+    q_abs = torch.einsum("bhk,rhk->bhr", q[..., :dn], p["wk_b"])
+    kv_a = torch.einsum("bd,dr->br", x0, p["wkv_a"])
+    c_new = _rms(kv_a[..., :kvr], p["kv_a_norm"])
+    kr_new = apply_rope(kv_a[:, None, None, kvr:], at,
+                        cfg.rope_theta)[:, 0, 0]
+    if 0 <= pos < S:
+        cc[:, pos] = c_new
+        ckr[:, pos] = kr_new
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), cc.float())
+         + torch.einsum("bhk,bsk->bhs", q_rope.float(), ckr.float()))
+    s = s / math.sqrt(dn + dr)
+    s = torch.where(torch.arange(S, device=x.device) <= pos, s, -1e30)
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None])
+    l = pr.sum(-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr.to(cc.dtype).float(), cc.float())
+    ctx = (ctx / l.clamp_min(1e-30)[..., None]).to(q_abs.dtype)
+    out = torch.einsum("bhr,rhk->bhk", ctx, p["wv_b"])
+    y = torch.einsum("bhk,hkd->bd", out, p["wo"])
+    return y[:, None], {"c_kv": cc, "k_rope": ckr}

@@ -1,5 +1,6 @@
 """Model facade of the port: the serving steps of ``repro.models.model``
-for the dense decoder (and encoder) LMs, as an ``nn.Module``.
+for the attention LMs (dense, MoE and MLA decoders, and encoders), as an
+``nn.Module``.
 
 ``build(cfg, device=None)`` returns a ``Model`` whose ``prefill_step(batch)``
 and ``decode_step(caches, token, pos)`` keep the reference's names, inputs
@@ -7,7 +8,8 @@ and outputs, so one test can drive both.  Weights are drawn from an
 explicit ``torch.Generator`` on the model's device, or carried over from
 the reference's parameter pytree with ``params_from_reference``.  Serving
 runs under ``torch.inference_mode()``.  The training side (``ce_loss``,
-``loss_fn``, ``train_step``, MTP heads) is not ported and raises.
+``loss_fn``, ``train_step``, MTP heads) is not ported and raises; a
+``Model`` holds no MTP parameters, which only the training loss reads.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ def ce_loss(*args, **kwargs):
 
 
 class Model(nn.Module):
-    """A dense decoder (or encoder) LM on one device."""
+    """An attention decoder (or encoder) LM on one device."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -133,7 +135,8 @@ class Model(nn.Module):
 
 def pad_caches(caches, length: int):
     """Caches zero-padded along the sequence to ``length`` positions, the
-    layout in which ``decode_step`` appends each new token's K/V."""
+    layout in which ``decode_step`` appends each new token's cache row
+    (K/V, or the MLA latent and RoPE key)."""
     out = {}
     for name, c in caches.items():
         padded = c.new_zeros(c.shape[:2] + (length,) + c.shape[3:])
@@ -165,8 +168,14 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_reference(tree, cfg: ModelConfig) -> dict:
     """The port's state dict of the reference's parameter pytree (numpy
-    arrays): ``emb``, ``unemb``, ``ln_final`` and ``stacks``, each stack with
-    its leading layer axis.  Load it with ``Model.load_state_dict``."""
+    arrays): ``emb``, ``unemb``, ``ln_final`` and ``stacks`` (deepseek's
+    ``moe_dense`` stack, then its ``moe`` stack), each stack with its
+    leading layer axis.  Load it with ``Model.load_state_dict``.
+
+    ``mtp`` is left out on purpose: the multi-token-prediction head is read
+    only by the reference's training loss (ROADMAP Queue 1 item 10), never
+    by serving, and at deepseek's full width it is one more MoE layer of
+    about 11.5 B parameters.  The port's serving ``Model`` holds none."""
     T.check_supported(cfg)
     sd = {"emb": _tensor(tree["emb"])}
     if "unemb" in tree:

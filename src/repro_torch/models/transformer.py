@@ -1,10 +1,13 @@
 """Layer stacks of the port's decoder and encoder LMs: the attention
-families of ``repro.models.transformer`` (``dense``, ``vlm``, ``audio``).
+families of ``repro.models.transformer`` (``dense``, ``vlm``, ``audio``,
+``moe``).
 
-The reference scans a parameter pytree stacked on a leading layer axis;
-here the layers are an ``nn.ModuleList`` walked in order.  KV caches keep
-the reference's layout, ``{"k", "v"}`` of shape (L, B, S, KV, hd).  What
-the port has not reached raises ``NotImplementedError`` naming its ROADMAP
+The reference scans a parameter pytree stacked on a leading layer axis,
+one stack per run of identical layer kinds (``stack_groups``); here the
+layers are one ``nn.ModuleList`` walked in order.  Caches keep the
+reference's layout: ``{"k", "v"}`` of shape (L, B, S, KV, hd) for GQA,
+``{"c_kv": (L, B, S, kvr), "k_rope": (L, B, S, dr)}`` for MLA.  What the
+port has not reached raises ``NotImplementedError`` naming its ROADMAP
 item (``check_supported``).
 """
 from __future__ import annotations
@@ -12,13 +15,14 @@ from __future__ import annotations
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
-ATTENTION_FAMILIES = ("dense", "vlm", "audio")
+ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 # the ROADMAP item of each layer kind the port does not run yet
-_MOE, _SSM = "8 (MoE and MLA forward)", "9 (SSM and hybrid forward)"
-UNPORTED = {"moe": _MOE, "moe_dense": _MOE, "ssm": _SSM, "hybrid": _SSM}
+_SSM = "9 (SSM and hybrid forward)"
+UNPORTED = {"ssm": _SSM, "hybrid": _SSM}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -28,8 +32,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     """Raise for a configuration this slice of the port does not run."""
-    if cfg.attn_type == "mla":
-        raise _unported(f"{cfg.name}: MLA attention", _MOE)
     if cfg.family in UNPORTED:
         raise _unported(f"{cfg.name}: the {cfg.family} family",
                         UNPORTED[cfg.family])
@@ -43,49 +45,89 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 # per-layer init / fwd
 # ---------------------------------------------------------------------------
-def init_layer(cfg, generator) -> nn.ModuleDict:
-    """A dense layer (the one kind ``stack_groups`` yields here)."""
+def init_layer(cfg, generator, kind: str) -> nn.ModuleDict:
+    """kind: dense | moe | moe_dense (MLA or GQA attention, then the
+    experts, a dense FFN of width ``dense_d_ff``, or the dense FFN)."""
     dev = generator.device
-    p = {"ln_attn": L.init_norm(cfg, dev),
-         "attn": L.init_attention(cfg, generator)}
+    p = {"ln_attn": L.init_norm(cfg, dev)}
+    if cfg.attn_type == "mla":
+        p["attn"] = L.init_mla(cfg, generator)
+    else:
+        p["attn"] = L.init_attention(cfg, generator)
     if not cfg.parallel_block:
         p["ln_mlp"] = L.init_norm(cfg, dev)
-    p["mlp"] = L.init_mlp(cfg, generator)
+    if kind == "moe":
+        p["moe"] = MOE.init_moe(cfg, generator)
+    elif kind == "moe_dense":
+        p["mlp"] = L.init_mlp(cfg, generator, cfg.dense_d_ff)
+    else:
+        p["mlp"] = L.init_mlp(cfg, generator)
     return nn.ModuleDict(p)
 
 
 def attn_block_fwd(p, x, cfg, positions, *, causal, return_kv=False):
+    """As the reference: a parallel block returns y (and kv); otherwise
+    (y, aux) (or (y, aux, kv)), aux the MoE's load-balancing loss or 0."""
     h = L.apply_norm(p["ln_attn"], x, cfg)
-    out = L.attention_fwd(p["attn"], h, cfg, positions=positions,
-                          causal=causal, return_kv=return_kv)
+    if cfg.attn_type == "mla":
+        out = L.mla_fwd(p["attn"], h, cfg, positions=positions,
+                        return_kv=return_kv)
+    else:
+        out = L.attention_fwd(p["attn"], h, cfg, positions=positions,
+                              causal=causal, return_kv=return_kv)
     attn_y, kv = out if return_kv else (out, None)
     if cfg.parallel_block:
         # cohere-style: one shared input norm, attn + mlp in parallel
         y = x + attn_y + L.apply_mlp(p["mlp"], h, cfg)
+        return (y, kv) if return_kv else y
+    x = x + attn_y
+    h2 = L.apply_norm(p["ln_mlp"], x, cfg)
+    if "moe" in p:
+        mlp_y, aux = MOE.moe_fwd(p["moe"], h2, cfg)
     else:
-        x = x + attn_y
-        y = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln_mlp"], x, cfg), cfg)
-    return (y, kv) if return_kv else y
+        mlp_y, aux = L.apply_mlp(p["mlp"], h2, cfg), 0.0
+    y = x + mlp_y
+    return (y, aux, kv) if return_kv else (y, aux)
 
 
 def attn_block_decode(p, x, cache, pos, cfg):
     h = L.apply_norm(p["ln_attn"], x, cfg)
-    attn_y, cache = L.gqa_decode_attention(p["attn"], h, cache, pos, cfg)
+    if cfg.attn_type == "mla":
+        attn_y, cache = L.mla_decode_attention(p["attn"], h, cache, pos, cfg)
+    else:
+        attn_y, cache = L.gqa_decode_attention(p["attn"], h, cache, pos, cfg)
     if cfg.parallel_block:
         return x + attn_y + L.apply_mlp(p["mlp"], h, cfg), cache
     x = x + attn_y
     h2 = L.apply_norm(p["ln_mlp"], x, cfg)
-    return x + L.apply_mlp(p["mlp"], h2, cfg), cache
+    if "moe" in p:
+        mlp_y, _ = MOE.moe_fwd(p["moe"], h2, cfg)
+    else:
+        mlp_y = L.apply_mlp(p["mlp"], h2, cfg)
+    return x + mlp_y, cache
 
 
 # ---------------------------------------------------------------------------
 # stacks
 # ---------------------------------------------------------------------------
+def _layer_kinds(cfg):
+    if cfg.family == "moe":
+        return (["moe_dense"] * cfg.num_dense_layers
+                + ["moe"] * (cfg.num_layers - cfg.num_dense_layers))
+    return ["dense"] * cfg.num_layers
+
+
 def stack_groups(cfg):
     """(kind, lo, hi) runs of identical layer kinds: the reference's
     stacks, each a scanned group of ``init_stack``'s ``"stacks"``."""
     check_supported(cfg)
-    return [("dense", 0, cfg.num_layers)]
+    kinds = _layer_kinds(cfg)
+    groups, start = [], 0
+    for i in range(1, len(kinds) + 1):
+        if i == len(kinds) or kinds[i] != kinds[start]:
+            groups.append((kinds[start], start, i))
+            start = i
+    return groups
 
 
 def init_stack(cfg, generator) -> dict:
@@ -99,25 +141,35 @@ def init_stack(cfg, generator) -> dict:
         params["unemb"] = L.param(L.normal((cfg.d_model, V), generator, dt))
     params["ln_final"] = L.init_norm(cfg, dev)
     params["layers"] = nn.ModuleList(
-        init_layer(cfg, generator)
-        for _, lo, hi in stack_groups(cfg) for _ in range(lo, hi))
+        init_layer(cfg, generator, kind)
+        for kind, lo, hi in stack_groups(cfg) for _ in range(lo, hi))
     return params
 
 
 # ---------------------------------------------------------------------------
 # prefill: forward + emit caches
 # ---------------------------------------------------------------------------
+def cache_shapes(cfg, B: int, S: int) -> dict:
+    """The shape of each cache of ``cfg`` for B sequences of S positions."""
+    n = cfg.num_layers
+    if cfg.attn_type == "mla":
+        return {"c_kv": (n, B, S, cfg.kv_lora_rank),
+                "k_rope": (n, B, S, cfg.qk_rope_dim)}
+    shape = (n, B, S, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": shape, "v": shape}
+
+
 def forward_prefill(layers, x, cfg, positions):
-    """x: (B,S,d) after embedding.  Returns (hidden, {"k", "v"}), the
-    caches exactly as long as the prompt, as on the reference."""
+    """x: (B,S,d) after embedding.  Returns (hidden, caches), the caches
+    exactly as long as the prompt, as on the reference."""
     B, S = x.shape[:2]
-    shape = (len(layers), B, S, cfg.num_kv_heads, cfg.head_dim)
-    caches = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+    caches = {n: x.new_empty(s) for n, s in cache_shapes(cfg, B, S).items()}
     for i, lp in enumerate(layers):
-        x, (k, v) = attn_block_fwd(lp, x, cfg, positions,
-                                   causal=not cfg.is_encoder, return_kv=True)
-        caches["k"][i] = k
-        caches["v"][i] = v
+        out = attn_block_fwd(lp, x, cfg, positions, causal=not cfg.is_encoder,
+                             return_kv=True)
+        x, kv = out[0], out[-1]
+        for name, c in zip(caches, kv):
+            caches[name][i] = c
     return x, caches
 
 
@@ -125,11 +177,10 @@ def forward_prefill(layers, x, cfg, positions):
 # decode: one token, caches carried
 # ---------------------------------------------------------------------------
 def forward_decode(layers, x, caches, pos, cfg):
-    """x: (B,1,d).  Each layer writes the token's K/V into its slice of
-    ``caches`` in place (where ``pos`` is inside them); returns (hidden,
-    caches)."""
+    """x: (B,1,d).  Each layer writes the token's cache row into its slice
+    of ``caches`` in place (where ``pos`` is inside them); returns
+    (hidden, caches)."""
     for i, lp in enumerate(layers):
-        x, _ = attn_block_decode(lp, x, {"k": caches["k"][i],
-                                         "v": caches["v"][i]}, pos, cfg)
+        x, _ = attn_block_decode(lp, x, {n: c[i] for n, c in caches.items()},
+                                 pos, cfg)
     return x, caches
-

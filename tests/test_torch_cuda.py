@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel against its plain version, the
-slice on ``cuda`` against the same run on the CPU (``tg_linear`` too), and
-the fused executor's captured rounds and device loop against their eager
-runs.  These tests need a CUDA
-card and skip without one; on the machine with the card run
+slice on ``cuda`` against the same run on the CPU (``tg_linear`` too), the
+fused executor's captured rounds and device loop against their eager
+runs, and the LM layers (MoE and MLA included) against the CPU.  These
+tests need a CUDA card and skip without one; on the machine with the card
+run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -665,7 +666,8 @@ def _params(cfg, make):
 @pytest.mark.parametrize("fn", ["norm_rms", "norm_layer", "rope", "swiglu",
                                 "squared_relu", "gelu_bias", "flash_causal",
                                 "flash_full", "attention_fwd", "decode_inside",
-                                "decode_at_end", "embed_logits"])
+                                "decode_at_end", "embed_logits", "mla_fwd",
+                                "mla_decode_inside", "mla_decode_at_end"])
 def test_lm_layers_on_the_card_match_the_cpu(lm_card, fn, dtype):
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -711,6 +713,28 @@ def test_lm_layers_on_the_card_match_the_cpu(lm_card, fn, dtype):
         _same_on_card(lambda p, h, pos: L.attention_fwd(
             p, h, cfg, positions=pos, return_kv=True)[0],
             (p, x(2, 24, cfg.d_model), pos), dtype, lm_card)
+    elif fn.startswith("mla"):
+        cfg = _smoke_cfg(dtype).with_(**{k: getattr(_moe_cfg(
+            "deepseek_v3_671b", dtype), k) for k in (
+                "attn_type", "q_lora_rank", "kv_lora_rank", "qk_nope_dim",
+                "qk_rope_dim", "v_head_dim")})
+        p = _params(cfg, L.init_mla)
+        if fn == "mla_fwd":
+            pos = torch.arange(24).expand(2, 24)
+            _same_on_card(lambda p, h, pos: L.mla_fwd(
+                p, h, cfg, positions=pos, return_kv=True)[1],
+                (p, x(2, 24, cfg.d_model), pos), dtype, lm_card)
+        else:
+            cache = {"c_kv": x(2, 20, cfg.kv_lora_rank),
+                     "k_rope": x(2, 20, cfg.qk_rope_dim)}
+            pos = 12 if fn == "mla_decode_inside" else 20
+
+            def step(p, h, cache):
+                y, c = L.mla_decode_attention(p, h, {
+                    k: v.clone() for k, v in cache.items()}, pos, cfg)
+                return y, c["c_kv"], c["k_rope"]
+            _same_on_card(step, (p, x(2, 1, cfg.d_model), cache), dtype,
+                          lm_card)
     elif fn.startswith("decode"):
         cfg = _smoke_cfg(dtype, use_bias=True)
         p = _params(cfg, L.init_attention)
@@ -729,6 +753,77 @@ def test_lm_layers_on_the_card_match_the_cpu(lm_card, fn, dtype):
         tok = torch.randint(0, 250, (3, 1), generator=g)
         _same_on_card(lambda t, tab: M.logits_fn(M.embed(t, tab), tab, cfg),
                       (tok, table), dtype, lm_card)
+
+
+def _moe_cfg(arch, dtype, **kw):
+    from repro_torch.configs.base import get_smoke_config
+    return get_smoke_config(arch).with_(
+        dtype=str(dtype).removeprefix("torch."), **kw)
+
+
+def _moe_params(cfg, device):
+    """``init_moe``'s parameters, the router 5x its init scale so that
+    routing is decisive."""
+    from repro_torch.models import moe as MOE
+    p = dict(MOE.init_moe(cfg, torch.Generator().manual_seed(0)))
+    p["router"] = p["router"] * 5.0
+    return {k: v.to(device) for k, v in p.items()}
+
+
+NEAR_TIE = 1e-6
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v3_671b"])
+def test_moe_fwd_on_the_card_matches_the_cpu(lm_card, arch,
+                                             capacity_factor):
+    """Float32, TF32 off: a token may reach another expert on the card
+    only at a near-tie of the CPU's own probabilities (at the first rank
+    where its experts differ, that probability and the next within
+    ``NEAR_TIE``, relative); the tokens routed and kept alike are equal
+    within 1e-4."""
+    from repro_torch.models import moe as MOE
+    cfg = _moe_cfg(arch, torch.float32, capacity_factor=capacity_factor)
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", lm_card):
+        p = _moe_params(cfg, dev)
+        xd = x.to(dev)
+        _, top_e, probs, aux = MOE.route(p["router"], xd.reshape(
+            -1, cfg.d_model), cfg)
+        kept, _ = MOE.assign_slots(top_e, cfg.num_experts,
+                                   MOE.capacity(len(top_e), cfg))
+        y, aux_y = MOE.moe_fwd(p, xd, cfg)
+        assert torch.equal(aux, aux_y)
+        runs.append([t.cpu() for t in (top_e, probs, kept, y, aux)])
+    (e_c, p_c, k_c, y_c, a_c), (e_g, _, k_g, y_g, a_g) = runs
+    differ = (e_g != e_c).any(1)
+    for t in differ.nonzero().flatten().tolist():
+        j = int((e_g[t] != e_c[t]).nonzero()[0])
+        ps = p_c[t].double().sort(descending=True).values
+        assert ps[j] - ps[j + 1] <= NEAR_TIE * ps[j], (t, e_g[t], e_c[t])
+    same = ~differ & (k_g.view(len(e_c), -1) == k_c.view(len(e_c), -1)).all(1)
+    torch.testing.assert_close(y_g.reshape(len(e_c), -1)[same],
+                               y_c.reshape(len(e_c), -1)[same], atol=1e-4,
+                               rtol=1e-4)
+    if not differ.any():
+        torch.testing.assert_close(a_g, a_c, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v3_671b"])
+def test_moe_fwd_bfloat16_repeats_bit_for_bit_on_the_card(card, arch):
+    """The combine adds each token's contributions in a fixed order, so a
+    bfloat16 run repeats to the bit (a scatter-add with atomics would
+    not)."""
+    from repro_torch.models import moe as MOE
+    cfg = _moe_cfg(arch, torch.bfloat16, top_k=4)
+    p = _moe_params(cfg, card)
+    x = torch.randn((8, 512, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(2)).to(torch.bfloat16).to(card)
+    y1, _ = MOE.moe_fwd(p, x, cfg)
+    y2, _ = MOE.moe_fwd(p, x, cfg)
+    assert torch.equal(y1, y2)
 
 
 def test_stablelm_two_layers_full_width_on_the_card_matches_the_cpu(lm_card):

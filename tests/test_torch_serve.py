@@ -4,6 +4,9 @@ JAX reference, in-process on the CPU.
 
 Each model's weights are the reference's ``init_params(PRNGKey(k))``,
 carried over by ``params_from_reference``; prompts come from a numpy seed.
+The reference's steps are jitted as ``repro.launch.serve`` jits them,
+except in the MoE configurations, which are compiled with XLA's excess
+precision off (``rounded_jit``).
 Prefill runs over two attention chunks (the smoke configs' chunk is 16, the
 prompt 24 tokens), then 8 decode steps on caches zero-padded to prompt + 8,
 each step fed the reference's token.  Tolerances: float32 atol = rtol =
@@ -35,9 +38,11 @@ from repro_torch.data.kb_sources import LUBM_L, lubm_facts
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import model as PM
+from repro_torch.models import transformer as PT
 
 SERVED = ["stablelm_12b", "starcoder2_15b", "command_r_35b",
-          "nemotron_4_340b", "internvl2_1b"]
+          "nemotron_4_340b", "internvl2_1b", "qwen3_moe_30b_a3b",
+          "deepseek_v3_671b"]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=5e-2, rtol=0)}
@@ -45,12 +50,35 @@ BF16_RMS = 2.0 ** -6
 B, S, GEN = 2, 24, 8
 
 
+def rounded_jit(fn):
+    """``fn`` jitted and compiled, once per input signature, with XLA's
+    excess precision off: every bfloat16 value is then rounded where the
+    reference's code rounds it.  With it on, XLA may keep a fused value in
+    float32 (the normed hidden state the router reads, for one), so the
+    compiled reference leaves its own op-by-op arithmetic, and in the MoE
+    configurations a routing near-tie flips (qwen3's smoke config in
+    bfloat16: one token's 2nd and 3rd expert probabilities 3.7e-4 apart,
+    relative) and moves that token's later cache rows by 0.15."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        key = jax.tree.map(lambda a: (a.shape, a.dtype), args)
+        key = (jax.tree.structure(args), tuple(jax.tree.leaves(key)))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options={"xla_allow_excess_precision": False})
+        return compiled[key](*args)
+    return call
+
+
 @functools.lru_cache(maxsize=None)
-def reference(arch, dtype, key):
+def reference(arch, dtype, key, **overrides):
     """The reference model, its parameters, and its prefill / decode steps
     returning logits, jitted once per configuration (the bodies of
-    ``Model.prefill_step`` / ``decode_step`` before their argmax)."""
-    cfg = RB.get_smoke_config(arch).with_(dtype=dtype)
+    ``Model.prefill_step`` / ``decode_step`` before their argmax; a MoE
+    configuration's through ``rounded_jit``); ``overrides`` change fields
+    of the config."""
+    cfg = RB.get_smoke_config(arch).with_(dtype=dtype, **overrides)
     mesh = compat_make_mesh((1, 1), ("data", "model"))
     mcx = MeshCtx(mesh=mesh, dp=("data",), tp="model")
     mdl = RM.build(cfg, mcx)
@@ -73,11 +101,12 @@ def reference(arch, dtype, key):
         h = RL.apply_norm(params["ln_final"], h, cfg)
         return RM.logits_fn(h, RM._unemb_t(params, cfg), cfg, mcx), caches
 
-    return mdl, params, jax.jit(prefill), jax.jit(decode)
+    jit = rounded_jit if cfg.family == "moe" else jax.jit
+    return mdl, params, jit(prefill), jit(decode)
 
 
-def port_of(arch, dtype, params):
-    cfg = PB.get_smoke_config(arch).with_(dtype=dtype)
+def port_of(arch, dtype, params, **overrides):
+    cfg = PB.get_smoke_config(arch).with_(dtype=dtype, **overrides)
     mdl = PM.build(cfg, "cpu")
     tree = jax.tree.map(np.asarray, params)
     mdl.load_state_dict(PM.params_from_reference(tree, cfg))
@@ -142,11 +171,11 @@ def test_prefill_and_decode_equal_the_reference(arch, dtype):
                                        for k, v in batch.items()})
     tok = check_logits(logits_p, logits_r, dtype)
     check_caches(caches_p, caches_r, dtype)
-    assert caches_p["k"].shape == (cfg.num_layers, B, S, cfg.num_kv_heads,
-                                   cfg.head_dim)
+    assert {n: c.shape for n, c in caches_p.items()} \
+        == PT.cache_shapes(cfg, B, S)
     caches_r = jax.tree.map(
-        lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, GEN), (0, 0), (0, 0))),
-        caches_r)
+        lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, GEN))
+                          + ((0, 0),) * (c.ndim - 3)), caches_r)
     caches_p = PM.pad_caches(caches_p, S + GEN)
     rng = np.random.default_rng(2)
     for t in range(GEN):
@@ -160,8 +189,10 @@ def test_prefill_and_decode_equal_the_reference(arch, dtype):
                                          S + t)
         tok = check_logits(logits_p, logits_r, dtype)
     check_caches(caches_p, caches_r, dtype)
-    # every step wrote its token's K/V: no padded position is left at zero
-    assert bool((caches_p["k"][:, :, S:].abs().sum(-1) > 0).all())
+    # every step wrote its token's cache rows: no padded position is left
+    # at zero
+    for c in caches_p.values():
+        assert bool((c[:, :, S:].abs().sum(-1) > 0).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -240,9 +271,49 @@ def test_sharding_and_backward_flags_keep_the_forward():
     assert torch.equal(la, lb) and torch.equal(ca["k"], cb["k"])
 
 
+@pytest.mark.parametrize("capacity_factor", [1.25, 4.0])
+def test_moe_decode_routes_at_its_own_capacity(capacity_factor):
+    """A decode step routes its B tokens at capacity ceil(B k cf / E), a
+    re-prefill its B (S + 1) tokens at another, so the two drop different
+    assignments and decode does not equal a re-prefill past the first MoE
+    layer, on the reference as on the port.  Smallest case: qwen3's smoke
+    config (E = 8, k = 2), B = 2, a 1-token prompt: at the configured 1.25
+    decode routes at C = 1 and the re-prefill at C = 2, and the logits
+    differ by about 5e-3; at capacity factor E / k = 4 nothing is dropped
+    and they are equal."""
+    arch = "qwen3_moe_30b_a3b"
+    _, params, ref_prefill, ref_decode = reference(
+        arch, "float32", 0, capacity_factor=capacity_factor)
+    port = port_of(arch, "float32", params, capacity_factor=capacity_factor)
+    tok = np.random.default_rng(0).integers(0, 256, (2, 1)).astype(np.int32)
+
+    def ref_steps():
+        logits, caches = ref_prefill(params, {"tokens": jnp.asarray(tok)})
+        nxt = np.asarray(logits).argmax(-1).astype(np.int32)
+        caches = jax.tree.map(lambda c: jnp.pad(
+            c, ((0, 0), (0, 0), (0, 1)) + ((0, 0),) * (c.ndim - 3)), caches)
+        step, _ = ref_decode(params, caches, jnp.asarray(nxt),
+                             jnp.asarray(1, jnp.int32))
+        again, _ = ref_prefill(params, {"tokens": jnp.asarray(
+            np.concatenate([tok, nxt[:, None]], 1))})
+        return as_np(step), as_np(again)
+
+    def port_steps():
+        logits, caches = port.prefill({"tokens": torch.from_numpy(tok)})
+        nxt = logits.argmax(-1)
+        step, _ = port.decode(PM.pad_caches(caches, 2), nxt, 1)
+        again, _ = port.prefill({"tokens": torch.cat(
+            [torch.from_numpy(tok), nxt[:, None].int()], 1)})
+        return as_np(step), as_np(again)
+
+    (step_r, again_r), (step_p, again_p) = ref_steps(), port_steps()
+    np.testing.assert_allclose(step_p, step_r, **TOL["float32"])
+    for step, again in ((step_r, again_r), (step_p, again_p)):
+        gap = np.abs(step - again).max()
+        assert (gap > 1e-3) if capacity_factor < 4 else (gap <= 1e-5), gap
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("qwen3_moe_30b_a3b", "item 8 \\(MoE and MLA forward\\)"),
-    ("deepseek_v3_671b", "item 8 \\(MoE and MLA forward\\)"),
     ("falcon_mamba_7b", "item 9 \\(SSM and hybrid forward\\)"),
     ("zamba2_1p2b", "item 9 \\(SSM and hybrid forward\\)"),
     ("causal_tree_attn", "item 11 \\(causal_tree_attn\\)")])
@@ -280,6 +351,18 @@ def test_serve_launcher_prints_the_references_lines(capsys):
     gen, _, _ = serve.serve(PB.get_smoke_config("internvl2_1b"), 2, 20, 5,
                             "cpu")
     assert gen.shape == (2, 5) and gen.max() < 256
+
+
+@pytest.mark.parametrize("arch,name", [("qwen3_moe_30b_a3b",
+                                        "qwen3-moe-30b-a3b"),
+                                       ("deepseek_v3_671b",
+                                        "deepseek-v3-671b")])
+def test_serve_launcher_serves_the_moe_configurations(arch, name, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert re.fullmatch(rf"\[serve\] {name}: prefill\(4x32\)=\d+ms  "
+                        r"decode 32 toks: [\d.]+ms/tok", lines[0]), lines
+    assert re.fullmatch(r"\[serve\] sample: \[[\d ]+\]", lines[1]), lines
 
 
 def test_synthetic_tokens_equal_the_reference():

@@ -126,13 +126,34 @@ Phases, each fatal on failure:
    experts in the two is held up to that layer).  A 2-layer float32 copy
    of qwen3 at full width on the card against the CPU.  It adds the ``serve_moe`` line and a
    ``launches_serve_moe`` key to each kernel row.
+14. serving SSM and hybrid LMs (``models/ssm.py``, zamba2's shared
+   block, ``causal_tree_attn``; no kernel of their own): phase 12's KB
+   materialized and linearized again (every kernel must launch, the
+   tokens equal phase 12's), served by ``kb_mamba`` (falcon's pattern)
+   and ``kb_zamba`` (zamba2's, the shared block after every 2nd layer) at
+   ``lm_100m``'s width, float32 on the card against the CPU, then
+   bfloat16, timed.  ``falcon_mamba_7b``'s and ``zamba2_1p2b``'s
+   ``CONFIG`` at full width and depth in bfloat16: prefill 8 x 2048 cold
+   and warm, 32 greedy tokens, finite logits, peak memory, one decode
+   step profiled, and the first decode step against a re-prefill: the
+   logits and every layer's conv tail and h (and zamba2's shared K/V
+   rows) within ``BF16_REL`` in rms, with planted faults (h not
+   advanced, conv tail not shifted, zamba2's K/V row not written) above
+   it; falcon over 8 x 2048 + 1, zamba2 over 8 x 255 + 1, where the
+   re-prefill fits one SSM chunk (its 8 x 2048 + 1 is printed: the
+   reference's multi-chunk SSD is not exact).  2-layer float32 copies at
+   full width on the card against the CPU: falcon, zamba2 with the
+   shared block after every 2nd layer, and ``stablelm_12b`` with
+   ``causal_tree_attn`` over 2 x 2048, also against the same copy
+   without the tree.  It adds the ``serve_ssm`` line and a
+   ``launches_serve_ssm`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
 ``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
-``{"kernels": [...]}`` line,
+``{"serve_ssm": {...}}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -1551,7 +1572,8 @@ FULL = {"batch": 8, "prompt": 2048, "gen": 64}  # stablelm_12b, full width
 FULL_CPU = {"batch": 2, "prompt": 1040, "gen": 4}   # 2 layers, card vs CPU
 F32_TOL = 1e-3    # card against CPU, float32: |a - b| <= tol * (1 + |b|)
 F32_RMS = 1e-4    # decode against re-prefill, float32: rms(a - b) <= tol *
-                  # rms(b), for the logits and the K/V row decode wrote
+                  # rms(b), for the logits and the K/V row or the SSM
+                  # states decode wrote
 BF16_REL = 0.1    # the same, bfloat16 through 40 random layers; set
                   # between a sound step (logits 0.054, K/V row 0.036) and
                   # the planted fault (logits 0.18) on the H100
@@ -1821,18 +1843,30 @@ def routing_differences(card_calls, cpu_calls, batch, expected) -> dict:
 
 def card_against_cpu(cfg, tokens, gen):
     """``cfg`` (float32) with weights drawn on the card from seed 0, served
-    there (TF32 off) and its first decode step held against a re-prefill
-    (to ``F32_RMS`` on the rows of the ``held_layers``, and the planted
-    fault must read above it; the logits too, to ``F32_TOL`` and
-    ``F32_RMS``, where every layer is held), then moved to the CPU and
-    served again, fed the card's tokens.  The routing of a MoE model is
-    held call by call (``routing_differences``), and the rows where it
-    differs are left out of the comparison.  Returns the comparison."""
+    there (TF32 off) and, in an attention model, its first decode step held
+    against a re-prefill (to ``F32_RMS`` on the rows of the
+    ``held_layers``, and the planted fault must read above it; the logits
+    too, to ``F32_TOL`` and ``F32_RMS``, where every layer is held), then
+    moved to the CPU and served again, fed the card's tokens.  An SSM or
+    hybrid model's first decode step is held instead by
+    ``ssm_vs_reprefill`` to ``F32_RMS`` in the logits and every layer's
+    states, with its planted faults above it; a Mamba-2 model's over the
+    first ``ssm_chunk - 1`` positions only, where the re-prefill fits one
+    SSM chunk (the reference's multi-chunk SSD is not exact: ROADMAP,
+    Queue 3).  The routing of a MoE model is held call by call
+    (``routing_differences``), and the rows where it differs are left out
+    of the comparison.  Returns the comparison."""
     from repro_torch.models.model import build
     mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
     with RoutingLog() as routed_card:
         card = serve_run(mdl, tokens, gen, keep=(0, 1, gen))
-    again = decode_vs_reprefill(mdl, tokens, card)
+    ssm = cfg.family in ("ssm", "hybrid")
+    if not ssm:
+        again = decode_vs_reprefill(mdl, tokens, card)
+    elif cfg.ssm_version == 1:
+        again = ssm_vs_reprefill(mdl, tokens)
+    else:
+        again = ssm_vs_reprefill(mdl, tokens[:, :cfg.ssm_chunk - 1])
     card.pop("caches")
     mdl.to("cpu")
     torch.cuda.empty_cache()
@@ -1844,8 +1878,15 @@ def card_against_cpu(cfg, tokens, gen):
                                   tokens.shape[0],
                                   moe_layers(cfg) * (1 + gen))
     rec = compare_runs(card, cpu, F32_TOL, routing["rows"])
-    rec["ok"] = rec["ok"] and routing["all_near_ties"] \
-        and again["kv_rms_rel_err"] <= F32_RMS \
+    rec["ok"] = rec["ok"] and routing["all_near_ties"]
+    if ssm:
+        rec["ok"] = rec["ok"] and reprefill_held(again, F32_RMS) \
+            and not again["step"]["token_mismatches"]
+        return {**rec, "decode_vs_reprefill": {**again,
+                                               "tol_rms_rel": F32_RMS},
+                "card": timing(card, tokens.shape[0]),
+                "cpu_s": time.perf_counter() - t0}
+    rec["ok"] = rec["ok"] and again["kv_rms_rel_err"] <= F32_RMS \
         and again["fault_kv_rms_rel_err"] > F32_RMS
     if held_layers(cfg) == slice(None):
         rec["ok"] = rec["ok"] and again["within_tol"] \
@@ -1885,45 +1926,54 @@ def kb_tokens(facts, lubm_nfacts, lubm_stats):
                           "stream_tokens": len(data.stream)}
 
 
-CONFIG_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads",
-               "head_dim", "d_ff", "vocab_size", "attn_chunk", "dtype",
-               "attn_type", "q_lora_rank", "kv_lora_rank", "qk_nope_dim",
-               "qk_rope_dim", "v_head_dim", "num_dense_layers", "dense_d_ff",
-               "num_experts", "top_k", "num_shared_experts", "moe_d_ff")
+CONFIG_KEYS = ("family", "num_layers", "d_model", "num_heads",
+               "num_kv_heads", "head_dim", "d_ff", "vocab_size", "attn_chunk",
+               "dtype", "attn_type", "q_lora_rank", "kv_lora_rank",
+               "qk_nope_dim", "qk_rope_dim", "v_head_dim", "num_dense_layers",
+               "dense_d_ff", "num_experts", "top_k", "num_shared_experts",
+               "moe_d_ff", "d_inner", "ssm_state", "ssm_dt_rank",
+               "ssm_head_dim", "ssm_chunk", "hybrid_attn_every",
+               "causal_tree_attn")
 
 
-def kb_lm_path(name, make_cfg, facts, lubm_nfacts, lubm_stats):
-    """The KB -> LM path, its kernel launches counted from 0: the KB's
-    tokens (``kb_tokens``) served by ``make_cfg(vocabulary)``, prefill and
-    ``KB_LM``'s greedy tokens on padded caches, in float32 on the card
-    against the CPU (``card_against_cpu``), then in bfloat16 on the card,
-    timed after a warm-up.  Returns the record, the launches and the
-    tokens."""
-    from repro_torch.kernels import ops as KO
+def kb_lm_serve(name, cfg, tokens, kb_rec):
+    """``cfg`` served on the KB's tokens: prefill and ``KB_LM``'s greedy
+    tokens on padded caches, in float32 on the card against the CPU
+    (``card_against_cpu``), then in bfloat16 on the card, timed after a
+    warm-up.  Logs the record and fails unless the float32 runs agree and
+    the bfloat16 logits are finite; returns the record."""
     from repro_torch.models.model import build
-    KO.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    tokens, data, kb_rec = kb_tokens(facts, lubm_nfacts, lubm_stats)
-    cfg = make_cfg(data.vocab_size)
     f32 = card_against_cpu(cfg.with_(dtype="float32"), tokens,
                            KB_LM["gen"])
     mdl = build(cfg.with_(dtype="bfloat16"), "cuda",
                 torch.Generator(device="cuda").manual_seed(0))
     serve_run(mdl, tokens, 2)                          # warm-up
     bf16 = serve_run(mdl, tokens, KB_LM["gen"])
-    launches = KO.launch_counts()
     rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
            "params": sum(p.numel() for p in mdl.parameters()),
            **kb_rec, **KB_LM, "float32_card_vs_cpu": f32,
            "bfloat16": {**timing(bf16, KB_LM["batch"]),
                         "finite": bf16["finite"]},
-           "peak_bytes": torch.cuda.max_memory_allocated(),
-           "launches": launches}
-    del mdl, data
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del mdl
     torch.cuda.empty_cache()
     log(f"[serve] {name} {json.dumps(rec)}")
     if not f32["ok"] or not bf16["finite"]:
         fail(f"serve {name}: {rec}")
+    return rec
+
+
+def kb_lm_path(name, make_cfg, facts, lubm_nfacts, lubm_stats):
+    """The KB -> LM path, its kernel launches counted from 0: the KB's
+    tokens (``kb_tokens``) served by ``make_cfg(vocabulary)``
+    (``kb_lm_serve``).  Returns the record, the launches and the
+    tokens."""
+    from repro_torch.kernels import ops as KO
+    KO.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, data, kb_rec = kb_tokens(facts, lubm_nfacts, lubm_stats)
+    rec = kb_lm_serve(name, make_cfg(data.vocab_size), tokens, kb_rec)
+    rec["launches"] = launches = KO.launch_counts()
     return rec, launches, tokens
 
 
@@ -2023,20 +2073,20 @@ def dropless_vs_reprefill(mdl, shape) -> dict:
             "tol_rms_rel": BF16_REL}
 
 
-def two_layers_against_cpu(name, cfg):
+def two_layers_against_cpu(name, cfg, shape=FULL_CPU):
     """A 2-layer float32 copy of ``cfg`` at full width, card against CPU
-    (``card_against_cpu``) over ``FULL_CPU``'s batch x prompt."""
-    tokens = torch.randint(0, cfg.vocab_size, (FULL_CPU["batch"],
-                                               FULL_CPU["prompt"]),
+    (``card_against_cpu``) over ``shape``'s batch x prompt."""
+    tokens = torch.randint(0, cfg.vocab_size, (shape["batch"],
+                                               shape["prompt"]),
                            device="cuda", generator=torch.Generator(
                                device="cuda").manual_seed(2))
     two = card_against_cpu(cfg.with_(num_layers=2, dtype="float32"),
-                           tokens, FULL_CPU["gen"])
+                           tokens, shape["gen"])
     torch.cuda.empty_cache()
     log(f"[serve] {name} 2 layers {json.dumps(two)}")
     if not two["ok"]:
         fail(f"serve {name} 2 layers: card and CPU differ: {two}")
-    return {**FULL_CPU, **two}
+    return {**shape, **two}
 
 
 def serve_phase(facts, lubm_nfacts, lubm_stats):
@@ -2163,6 +2213,273 @@ def serve_moe_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
     out["qwen3_moe_30b_a3b"]["two_layers_float32_card_vs_cpu"] = \
         two_layers_against_cpu("qwen3_moe_30b_a3b",
                                get_config("qwen3_moe_30b_a3b"))
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: serving SSM and hybrid LMs
+# ---------------------------------------------------------------------------
+FULL_SSM = {"batch": 8, "prompt": 2048, "gen": 32}  # falcon / zamba2
+ONE_CHUNK = {"batch": 8, "prompt": 255}  # zamba2: the re-prefill of 256
+                                         # fits one SSM chunk
+TREE = {"batch": 2, "prompt": 2048, "gen": 4}  # stablelm_12b, 2 layers:
+                                               # two attention chunks
+
+
+def kb_mamba(vocab: int):
+    """``falcon_mamba_7b``'s pattern (Mamba-1 layers, tied embeddings,
+    state 16, dt rank d_model / 16) at ``lm_100m``'s width and depth and
+    the linearizer's vocabulary."""
+    return lm_100m(vocab).with_(
+        name="kb-mamba", family="ssm", num_heads=0, num_kv_heads=0,
+        head_dim=0, d_ff=0, attn_type="none", ssm_version=1, ssm_state=16,
+        ssm_conv=4, ssm_dt_rank=48, tie_embeddings=True)
+
+
+def kb_zamba(vocab: int):
+    """``zamba2_1p2b``'s pattern (Mamba-2 layers, state 64 and as many
+    heads, and a shared MHA + gelu MLP block, here after every 2nd layer)
+    at ``lm_100m``'s width and depth and the linearizer's vocabulary."""
+    return lm_100m(vocab).with_(
+        name="kb-zamba", family="hybrid", num_kv_heads=12, mlp_type="gelu",
+        ssm_version=2, ssm_state=64, ssm_conv=4, ssm_head_dim=24,
+        ssm_ngroups=1, hybrid_attn_every=2)
+
+
+class StepFault:
+    """While entered, each Mamba decode step (``mamba1_step``,
+    ``mamba2_step``) returns its output as it should, but hands on the
+    state ``alter(old state, new state)``: a planted fault."""
+
+    def __init__(self, alter):
+        self.alter = alter
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self.mod, self.steps = ssm, (ssm.mamba1_step, ssm.mamba2_step)
+
+        def faulty(step):
+            def run(p, x, cfg, state):
+                out, new = step(p, x, cfg, state)
+                return out, self.alter(state, new)
+            return run
+        ssm.mamba1_step, ssm.mamba2_step = map(faulty, self.steps)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mamba1_step, self.mod.mamba2_step = self.steps
+
+
+# faults planted in a decode step's Mamba layers
+SSM_FAULTS = {"h_not_advanced": lambda old, new: (new[0], old[1]),
+              "conv_not_shifted": lambda old, new: (old[0], new[1])}
+
+
+def ssm_states(caches, S) -> dict:
+    """Float32 copies of every layer's conv tail and h, (L, B, ...), and of
+    a hybrid's shared K/V rows at position S, (slots, B, KV, hd)."""
+    conv, h = caches["ssm"]
+    out = {"conv": conv.to(torch.float32, copy=True), "h": h.clone()}
+    for n in ("k", "v"):
+        if n in caches:
+            out[n] = caches[n][:, :, S].to(torch.float32, copy=True)
+    return out
+
+
+def ssm_vs_reprefill(mdl, tokens) -> dict:
+    """The first decode step of an SSM or hybrid model (fed the prefill's
+    greedy token, on caches padded to S + 1) against a prefill of the
+    prompt and that token: rms(a - b) / rms(b) of the logits and, in the
+    worst layer, of each state ``ssm_states`` lists; the same for the
+    planted faults (``SSM_FAULTS``; a hybrid also decodes on its
+    prompt-length K/V caches, ``kv_not_written``, which leaves the row at
+    S to the padding's zeros); max |a - b| of the step's logits, and its
+    tokens against the re-prefill's where the top-2 margin exceeds twice
+    that."""
+    from repro_torch.models.model import pad_caches
+    V, S = mdl.cfg.vocab_size, tokens.shape[1]
+    logits, caches = mdl.prefill({"tokens": tokens})
+    fed = logits.argmax(-1)
+    base = pad_caches(caches, S + 1)
+    del caches
+
+    def fresh(length=S + 1):
+        return {n: tuple(t.clone() for t in c) if n == "ssm"
+                else c[:, :, :length].clone() for n, c in base.items()}
+
+    def step(caches, alter=None):
+        if alter:
+            with StepFault(alter):
+                out, caches = mdl.decode(caches, fed, S)
+        else:
+            out, caches = mdl.decode(caches, fed, S)
+        return out.float()[:, :V], ssm_states(pad_caches(caches, S + 1), S)
+
+    runs = {"step": step(fresh())}
+    for name, alter in SSM_FAULTS.items():
+        runs[name] = step(fresh(), alter)
+    if "k" in base:
+        runs["kv_not_written"] = step(fresh(S))
+    again, caches = mdl.prefill({"tokens": torch.cat([tokens, fed[:, None]],
+                                                     1)})
+    ref, ref_states = again.float()[:, :V], ssm_states(caches, S)
+    del caches, base
+
+    def rel(a, b):
+        return rms(a - b) / rms(b)
+    rec = {}
+    for name, (got, states) in runs.items():
+        worst = {n: max(rel(states[n][i], r[i]) for i in range(len(r)))
+                 for n, r in ref_states.items()}
+        rec[name] = {"rms_rel_err": rel(got, ref),
+                     "worst_layer_rms_rel_err": worst,
+                     "max": max(rel(got, ref), *worst.values())}
+    got = runs["step"][0]
+    err = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+    rec["step"].update(max_abs_err=err, tokens_compared=int(sure.sum()),
+                       token_mismatches=int((got.argmax(-1)[sure]
+                                             != ref.argmax(-1)[sure]).sum()))
+    return {"prompt": S, **rec}
+
+
+def reprefill_held(rec, tol) -> bool:
+    """The step within ``tol`` in the logits and every state's worst
+    layer, and each planted fault above it somewhere."""
+    faults = [n for n in rec if n not in ("prompt", "step")]
+    return rec["step"]["max"] <= tol and all(rec[n]["max"] > tol
+                                             for n in faults)
+
+
+def ssm_full_width(name, cfg, shape, one_chunk=None):
+    """``cfg`` in bfloat16 on the card, random weights from seed 0: a cold
+    prefill of ``shape``'s batch x prompt, then a warm one and ``gen``
+    greedy tokens on padded caches, timed; one more decode step profiled;
+    the first decode step against a re-prefill over the prompt
+    (``ssm_vs_reprefill``) and, with ``one_chunk``, over that shorter
+    prompt (random tokens from seed 3); the peak memory.  Returns the
+    record."""
+    from repro_torch.models.model import build
+    B, S, gen = shape["batch"], shape["prompt"], shape["gen"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    sync()
+    t_build = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    mdl.prefill({"tokens": tokens})
+    sync()
+    t_cold = time.perf_counter() - t0
+    run = serve_run(mdl, tokens, gen, keep=(0,))
+    last = run["tokens"][:, -1].cuda()
+    prof = profile_run(f"{name} decode step", lambda: mdl.decode(
+        run.pop("caches"), last, S + gen - 1))
+    again = {"full": ssm_vs_reprefill(mdl, tokens)}
+    if one_chunk:
+        short = torch.randint(0, cfg.vocab_size, (B, one_chunk["prompt"]),
+                              device="cuda", generator=torch.Generator(
+                                  device="cuda").manual_seed(3))
+        again["one_chunk"] = ssm_vs_reprefill(mdl, short)
+    rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
+           "params": sum(p.numel() for p in mdl.parameters()), **shape,
+           "build_s": t_build, "prefill_cold_ms": t_cold * 1e3,
+           **timing(run, B), "finite": run["finite"],
+           "decode_step_profile": prof,
+           "decode_vs_reprefill": {**again, "tol_rms_rel": BF16_REL},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del mdl, run, tokens
+    torch.cuda.empty_cache()
+    log(f"[serve_ssm] {name} {json.dumps(rec)}")
+    return rec
+
+
+def tree_against_flash(cfg) -> dict:
+    """``cfg``'s 2-layer float32 copy with ``causal_tree_attn`` over
+    ``TREE``'s batch x prompt (two attention chunks, so one split): on the
+    card against the CPU (``two_layers_against_cpu``), and on the card
+    against the same copy without the tree, fed the same tokens
+    (``compare_runs`` within ``F32_TOL``)."""
+    from repro_torch.models.model import build
+    tree = cfg.with_(causal_tree_attn=True)
+    rec = two_layers_against_cpu(f"{cfg.name} causal_tree_attn", tree, TREE)
+    tokens = torch.randint(0, cfg.vocab_size, (TREE["batch"],
+                                               TREE["prompt"]),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+    two = tree.with_(num_layers=2, dtype="float32")
+    mdl = build(two, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    with_tree = serve_run(mdl, tokens, TREE["gen"], keep=(0, 1, TREE["gen"]))
+    mdl.cfg = two.with_(causal_tree_attn=False)
+    flash = serve_run(mdl, tokens, TREE["gen"], feed=with_tree["tokens"],
+                      keep=(0, 1, TREE["gen"]))
+    del mdl, with_tree["caches"], flash["caches"]
+    torch.cuda.empty_cache()
+    rec["card_vs_flash"] = compare_runs(with_tree, flash, F32_TOL)
+    rec["card_vs_flash"]["tree_prefill_ms"] = with_tree["prefill_s"] * 1e3
+    rec["card_vs_flash"]["flash_prefill_ms"] = flash["prefill_s"] * 1e3
+    log(f"[serve_ssm] {cfg.name} causal_tree_attn vs flash "
+        f"{json.dumps(rec['card_vs_flash'])}")
+    if not rec["card_vs_flash"]["ok"]:
+        fail(f"serve_ssm: causal_tree_attn differs from flash: {rec}")
+    return rec
+
+
+def serve_ssm_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
+    """Phase 14.  (a) Phase 12's KB, materialized and linearized once more
+    (every kernel must launch; the tokens equal phase 12's), served by
+    ``kb_mamba`` and by ``kb_zamba`` (``kb_lm_serve``: float32 on the card
+    against the CPU, then bfloat16, timed).  (b) ``falcon_mamba_7b``'s
+    and (c) ``zamba2_1p2b``'s ``CONFIG`` at full width and depth in
+    bfloat16 (``ssm_full_width``, 8 x 2048 + 32): finite logits; decode
+    against a re-prefill (``ssm_vs_reprefill``) held to ``BF16_REL`` with
+    the planted faults above it, for falcon over 8 x 2048 + 1, for zamba2
+    over 8 x 255 + 1, where the re-prefill fits one SSM chunk; zamba2's
+    over 8 x 2048 + 1 is printed, not held: the reference's multi-chunk
+    SSD is not exact (ROADMAP, Queue 3), and the port keeps it.  (d)
+    2-layer float32 copies at full width on the card against the CPU:
+    falcon, zamba2 with the shared block after every 2nd layer (so that
+    it runs), and ``stablelm_12b`` with ``causal_tree_attn``, also against
+    the same copy without the tree (``tree_against_flash``).  Returns the
+    ``serve_ssm`` record and the kernel launches of (a)'s path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops as KO
+
+    # (a) KB -> Mamba-1 and Mamba-2 hybrid LMs
+    KO.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, data, kb_rec = kb_tokens(facts, lubm_nfacts, lubm_stats)
+    if not torch.equal(tokens, tokens_12):
+        fail("serve_ssm: the KB's tokens differ from phase 12's")
+    out = {name: kb_lm_serve(name, make(data.vocab_size), tokens, kb_rec)
+           for name, make in (("kb_mamba", kb_mamba), ("kb_zamba",
+                                                          kb_zamba))}
+    out["launches"] = launches = KO.launch_counts()
+    del data, tokens
+
+    # (b) falcon_mamba_7b, (c) zamba2_1p2b at full width and depth
+    falcon = ssm_full_width("falcon_mamba_7b", get_config("falcon_mamba_7b"),
+                            FULL_SSM)
+    if not (falcon["finite"] and reprefill_held(
+            falcon["decode_vs_reprefill"]["full"], BF16_REL)):
+        fail(f"serve_ssm falcon_mamba_7b: {falcon}")
+    zamba = ssm_full_width("zamba2_1p2b", get_config("zamba2_1p2b"),
+                           FULL_SSM, ONE_CHUNK)
+    if not (zamba["finite"] and reprefill_held(
+            zamba["decode_vs_reprefill"]["one_chunk"], BF16_REL)):
+        fail(f"serve_ssm zamba2_1p2b: {zamba}")
+    out["falcon_mamba_7b"], out["zamba2_1p2b"] = falcon, zamba
+
+    # (d) 2-layer float32 copies at full width, card against CPU
+    falcon["two_layers_float32_card_vs_cpu"] = two_layers_against_cpu(
+        "falcon_mamba_7b", get_config("falcon_mamba_7b"))
+    zamba["two_layers_float32_card_vs_cpu"] = two_layers_against_cpu(
+        "zamba2_1p2b", get_config("zamba2_1p2b").with_(hybrid_attn_every=2))
+    out["stablelm_12b_causal_tree_attn"] = tree_against_flash(
+        get_config("stablelm_12b"))
     return out, launches
 
 
@@ -2425,7 +2742,6 @@ def main() -> int:
     t0 = time.perf_counter()
     served_moe, launches_moe = serve_moe_phase(facts, lubm_nfacts,
                                                lubm_stats, tokens_12)
-    del tokens_12
     for r in rows:
         r["launches_serve_moe"] = launches_moe.get(r["name"], 0)
         r["launches"] += r["launches_serve_moe"]
@@ -2434,6 +2750,24 @@ def main() -> int:
     if any(launches_moe[k] == 0 for k in KERNELS):
         fail(f"a kernel was never launched on the KB->MoE LM path: "
              f"{launches_moe}")
+
+    # 14. serving SSM and hybrid LMs: the KB's tokens served by narrow
+    # Mamba-1 and Mamba-2 hybrid models (card against CPU),
+    # falcon_mamba_7b and zamba2_1p2b at full width and depth, and
+    # causal_tree_attn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served_ssm, launches_ssm = serve_ssm_phase(facts, lubm_nfacts,
+                                               lubm_stats, tokens_12)
+    del tokens_12
+    for r in rows:
+        r["launches_serve_ssm"] = launches_ssm.get(r["name"], 0)
+        r["launches"] += r["launches_serve_ssm"]
+    log(f"[serve_ssm] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_ssm}")
+    if any(launches_ssm[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched on the KB->SSM LM path: "
+             f"{launches_ssm}")
 
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
@@ -2446,6 +2780,7 @@ def main() -> int:
     print(json.dumps({"dist": dist}))
     print(json.dumps({"serve": {**served, "card": smi}}))
     print(json.dumps({"serve_moe": {**served_moe, "card": smi}}))
+    print(json.dumps({"serve_ssm": {**served_ssm, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

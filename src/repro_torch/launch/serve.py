@@ -3,10 +3,13 @@
 
 Prefill + batched greedy decode, as ``python -m repro.launch.serve``: the
 same arguments, the same refusal of encoder-only configurations and the
-same output lines.  As there, the caches are as long as the prompt, so
-each generated token's cache row is not written and it attends to the
-prompt only (``gqa_decode_attention``, ``mla_decode_attention``).  Runs
-on the card unless ``--device`` names another device.
+same output lines.  As there, the K/V caches are as long as the prompt,
+so each generated token's cache row is not written and it attends to the
+prompt only (``gqa_decode_attention``, ``mla_decode_attention``; zamba2's
+shared attention block keeps that contract too).  The Mamba states of the
+``ssm`` and ``hybrid`` families (conv tail and h per layer) carry no
+length: each decode step advances them.  Runs on the card unless
+``--device`` names another device.
 """
 import argparse
 import time

@@ -1,6 +1,6 @@
 """NN layers of the port: norms, RoPE, MLPs, chunked (flash-style)
-attention, one-token decode attention over a KV cache, and MLA (multi-head
-latent attention) with its latent cache.
+attention and its binary-tree causal form, one-token decode attention over
+a KV cache, and MLA (multi-head latent attention) with its latent cache.
 
 Counterpart of ``repro.models.layers`` on one device: there is no mesh, so
 the tensor-parallel degree is 1 and ``pad_to(H, 1) == H``.  Flags that only
@@ -201,6 +201,53 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int):
     return torch.cat(outs, dim=1)[:, :S_real].to(q.dtype)
 
 
+def causal_tree_attention(q, k, v, *, chunk: int):
+    """Binary-tree causal packing: causal(S) is causal attention on each
+    half plus the second half's *unmasked* dense cross-attention onto the
+    first, recursing until a block is at most ``chunk`` long, so the
+    causal triangle is covered by dense rectangles; partial results merge
+    by log-sum-exp, in the reference's order.  q, k, v: (B,S,H,D) (kv
+    already repeated to H)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def dense_block(qb, kb, vb, causal_mask):
+        s_blk = torch.einsum("bqhd,bkhd->bhqk", qb.float(),
+                             kb.float()) * scale
+        if causal_mask:
+            sq, sk = s_blk.shape[-2:]
+            mask = torch.arange(sq, device=q.device)[:, None] >= \
+                torch.arange(sk, device=q.device)[None, :]
+            s_blk = torch.where(mask, s_blk, -1e30)
+        m = s_blk.amax(-1)
+        p = torch.exp(s_blk - m[..., None])
+        l = p.sum(-1)
+        o = torch.einsum("bhqk,bkhd->bhqd", p.to(vb.dtype).float(),
+                         vb.float())
+        return m, l, o
+
+    def merge(a, b):
+        (ma, la, oa), (mb, lb, ob) = a, b
+        m = torch.maximum(ma, mb)
+        ca, cb = torch.exp(ma - m), torch.exp(mb - m)
+        return m, la * ca + lb * cb, oa * ca[..., None] + ob * cb[..., None]
+
+    def rec(qb, kb, vb):
+        s = qb.shape[1]
+        if s <= chunk:
+            return dense_block(qb, kb, vb, True)
+        h = s // 2
+        m1, l1, o1 = rec(qb[:, :h], kb[:, :h], vb[:, :h])
+        second = rec(qb[:, h:], kb[:, h:], vb[:, h:])
+        rect = dense_block(qb[:, h:], kb[:, :h], vb[:, :h], False)
+        m2, l2, o2 = merge(second, rect)
+        return (torch.cat([m1, m2], -1), torch.cat([l1, l2], -1),
+                torch.cat([o1, o2], -2))
+
+    _, l, o = rec(q, k, v)                                 # o: (B,H,S,D)
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                 # (B,S,H,D)
+
+
 def repeat_kv(x, h_out: int):
     """(B,S,KV,D) -> (B,S,h_out,D) by group repetition."""
     B, S, KV, D = x.shape
@@ -210,9 +257,6 @@ def repeat_kv(x, h_out: int):
 
 def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
     """Prefill attention.  x: (B,S,d)."""
-    if causal and cfg.causal_tree_attn:
-        raise NotImplementedError("causal_tree_attn is not ported: ROADMAP "
-                                  "Queue 1 item 11 (causal_tree_attn)")
     H = cfg.num_heads
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -226,8 +270,11 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     kv_cache = (k, v) if return_kv else None
-    out = flash_attention(q, repeat_kv(k, H), repeat_kv(v, H), causal=causal,
-                          chunk=cfg.attn_chunk)
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    if causal and cfg.causal_tree_attn:
+        out = causal_tree_attention(q, k, v, chunk=cfg.attn_chunk)
+    else:
+        out = flash_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if "bo" in p:
         y = y + p["bo"]

@@ -1,6 +1,6 @@
 """Model facade of the port: the serving steps of ``repro.models.model``
-for the attention LMs (dense, MoE and MLA decoders, and encoders), as an
-``nn.Module``.
+for every family it ships (dense, MoE and MLA decoders, encoders, Mamba-1
+and zamba2's Mamba-2 hybrid), as an ``nn.Module``.
 
 ``build(cfg, device=None)`` returns a ``Model`` whose ``prefill_step(batch)``
 and ``decode_step(caches, token, pos)`` keep the reference's names, inputs
@@ -54,7 +54,7 @@ def ce_loss(*args, **kwargs):
 
 
 class Model(nn.Module):
-    """An attention decoder (or encoder) LM on one device."""
+    """A decoder (or encoder) LM on one device."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -72,6 +72,7 @@ class Model(nn.Module):
             self.unemb = params["unemb"]
         self.ln_final = params["ln_final"]
         self.layers = params["layers"]
+        self.shared = params.get("shared")
 
     @property
     def device(self) -> torch.device:
@@ -96,13 +97,14 @@ class Model(nn.Module):
         x = self._embed_inputs(batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
-        h, caches = T.forward_prefill(self.layers, x, self.cfg, positions)
+        h, caches = T.forward_prefill(self.layers, x, self.cfg, positions,
+                                      self.shared)
         return self._logits(h[:, -1:]), caches
 
     @torch.inference_mode()
     def decode(self, caches, token, pos):
         """(logits (B,V) float32, caches) for one token at ``pos``; the
-        caches are updated in place and returned."""
+        caches (K/V rows, SSM states) are updated in place and returned."""
         cfg = self.cfg
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -111,7 +113,8 @@ class Model(nn.Module):
             x = token.to(L.torch_dtype(cfg.dtype))
         else:
             x = embed(token[:, None], self.emb)
-        h, caches = T.forward_decode(self.layers, x, caches, int(pos), cfg)
+        h, caches = T.forward_decode(self.layers, x, caches, int(pos), cfg,
+                                     self.shared)
         return self._logits(h), caches
 
     def prefill_step(self, batch):
@@ -136,9 +139,13 @@ class Model(nn.Module):
 def pad_caches(caches, length: int):
     """Caches zero-padded along the sequence to ``length`` positions, the
     layout in which ``decode_step`` appends each new token's cache row
-    (K/V, or the MLA latent and RoPE key)."""
+    (K/V, or the MLA latent and RoPE key).  The ``"ssm"`` states have no
+    sequence axis and pass through as they are."""
     out = {}
     for name, c in caches.items():
+        if name == "ssm":
+            out[name] = c
+            continue
         padded = c.new_zeros(c.shape[:2] + (length,) + c.shape[3:])
         padded[:, :, :c.shape[2]] = c
         out[name] = padded
@@ -168,20 +175,23 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_reference(tree, cfg: ModelConfig) -> dict:
     """The port's state dict of the reference's parameter pytree (numpy
-    arrays): ``emb``, ``unemb``, ``ln_final`` and ``stacks`` (deepseek's
-    ``moe_dense`` stack, then its ``moe`` stack), each stack with its
-    leading layer axis.  Load it with ``Model.load_state_dict``.
+    arrays): ``emb``, ``unemb``, ``ln_final``, ``stacks`` (deepseek's
+    ``moe_dense`` stack, then its ``moe`` stack; one ``ssm`` or ``hybrid``
+    stack), each stack with its leading layer axis, and the hybrid's
+    ``shared`` block.  Load it with ``Model.load_state_dict``.
 
     ``mtp`` is left out on purpose: the multi-token-prediction head is read
     only by the reference's training loss (ROADMAP Queue 1 item 10), never
     by serving, and at deepseek's full width it is one more MoE layer of
     about 11.5 B parameters.  The port's serving ``Model`` holds none."""
-    T.check_supported(cfg)
     sd = {"emb": _tensor(tree["emb"])}
     if "unemb" in tree:
         sd["unemb"] = _tensor(tree["unemb"])
     for k, a in tree["ln_final"].items():
         sd[f"ln_final.{k}"] = _tensor(a)
+    for part, leaves in tree.get("shared", {}).items():
+        for name, a in leaves.items():
+            sd[f"shared.{part}.{name}"] = _tensor(a)
     for (_, lo, hi), stack in zip(T.stack_groups(cfg), tree["stacks"]):
         for part, leaves in stack.items():
             for name, a in leaves.items():

@@ -1,45 +1,26 @@
-"""Layer stacks of the port's decoder and encoder LMs: the attention
-families of ``repro.models.transformer`` (``dense``, ``vlm``, ``audio``,
-``moe``).
+"""Layer stacks of the port's LMs, the counterpart of
+``repro.models.transformer``: the attention families (``dense``, ``vlm``,
+``audio``, ``moe``), Mamba-1 stacks (``ssm``) and Mamba-2 stacks with a
+shared attention + MLP block (``hybrid``, zamba2).
 
 The reference scans a parameter pytree stacked on a leading layer axis,
 one stack per run of identical layer kinds (``stack_groups``); here the
-layers are one ``nn.ModuleList`` walked in order.  Caches keep the
-reference's layout: ``{"k", "v"}`` of shape (L, B, S, KV, hd) for GQA,
-``{"c_kv": (L, B, S, kvr), "k_rope": (L, B, S, dr)}`` for MLA.  What the
-port has not reached raises ``NotImplementedError`` naming its ROADMAP
-item (``check_supported``).
+layers are one ``nn.ModuleList`` walked in order, and the reference's
+``lax.cond`` on the hybrid's apply flag is a branch on the layer index.
+Caches keep the reference's layout (``cache_shapes``): ``{"k", "v"}`` of
+shape (L, B, S, KV, hd) for GQA, ``{"c_kv": (L, B, S, kvr), "k_rope":
+(L, B, S, dr)}`` for MLA, ``{"ssm": (conv, h)}`` for Mamba stacks, and
+for ``hybrid`` also the shared block's ``{"k", "v"}`` of shape
+(n_slots, B, S, KV, hd), one slot per application.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-
-ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
-
-
-# the ROADMAP item of each layer kind the port does not run yet
-_SSM = "9 (SSM and hybrid forward)"
-UNPORTED = {"ssm": _SSM, "hybrid": _SSM}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported: ROADMAP Queue 1 item "
-                               f"{item}")
-
-
-def check_supported(cfg) -> None:
-    """Raise for a configuration this slice of the port does not run."""
-    if cfg.family in UNPORTED:
-        raise _unported(f"{cfg.name}: the {cfg.family} family",
-                        UNPORTED[cfg.family])
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise ValueError(cfg.family)
-    if cfg.causal_tree_attn:
-        raise _unported(f"{cfg.name}: causal_tree_attn", "11 "
-                        "(causal_tree_attn)")
+from repro_torch.models import ssm as SSM
 
 
 # ---------------------------------------------------------------------------
@@ -47,8 +28,13 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 def init_layer(cfg, generator, kind: str) -> nn.ModuleDict:
     """kind: dense | moe | moe_dense (MLA or GQA attention, then the
-    experts, a dense FFN of width ``dense_d_ff``, or the dense FFN)."""
+    experts, a dense FFN of width ``dense_d_ff``, or the dense FFN) | ssm |
+    hybrid (a norm, then Mamba-1 or Mamba-2)."""
     dev = generator.device
+    if kind in ("ssm", "hybrid"):
+        init = SSM.init_mamba1 if kind == "ssm" else SSM.init_mamba2
+        return nn.ModuleDict({"ln": L.init_norm(cfg, dev),
+                              "ssm": init(cfg, generator)})
     p = {"ln_attn": L.init_norm(cfg, dev)}
     if cfg.attn_type == "mla":
         p["attn"] = L.init_mla(cfg, generator)
@@ -63,6 +49,15 @@ def init_layer(cfg, generator, kind: str) -> nn.ModuleDict:
     else:
         p["mlp"] = L.init_mlp(cfg, generator)
     return nn.ModuleDict(p)
+
+
+def init_shared_block(cfg, generator) -> nn.ModuleDict:
+    """zamba2's shared attention + MLP block."""
+    dev = generator.device
+    return nn.ModuleDict({"ln_attn": L.init_norm(cfg, dev),
+                          "attn": L.init_attention(cfg, generator),
+                          "ln_mlp": L.init_norm(cfg, dev),
+                          "mlp": L.init_mlp(cfg, generator)})
 
 
 def attn_block_fwd(p, x, cfg, positions, *, causal, return_kv=False):
@@ -111,16 +106,26 @@ def attn_block_decode(p, x, cache, pos, cfg):
 # stacks
 # ---------------------------------------------------------------------------
 def _layer_kinds(cfg):
+    if cfg.family in ("dense", "vlm", "audio"):
+        return ["dense"] * cfg.num_layers
     if cfg.family == "moe":
         return (["moe_dense"] * cfg.num_dense_layers
                 + ["moe"] * (cfg.num_layers - cfg.num_dense_layers))
-    return ["dense"] * cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        return [cfg.family] * cfg.num_layers
+    raise ValueError(cfg.family)
+
+
+def hybrid_attn_slots(cfg):
+    """Layer indices after which the shared block applies; the i-th is
+    the shared block's cache slot i."""
+    return [i for i in range(cfg.num_layers)
+            if (i + 1) % cfg.hybrid_attn_every == 0]
 
 
 def stack_groups(cfg):
     """(kind, lo, hi) runs of identical layer kinds: the reference's
     stacks, each a scanned group of ``init_stack``'s ``"stacks"``."""
-    check_supported(cfg)
     kinds = _layer_kinds(cfg)
     groups, start = [], 0
     for i in range(1, len(kinds) + 1):
@@ -143,6 +148,8 @@ def init_stack(cfg, generator) -> dict:
     params["layers"] = nn.ModuleList(
         init_layer(cfg, generator, kind)
         for kind, lo, hi in stack_groups(cfg) for _ in range(lo, hi))
+    if cfg.family == "hybrid":
+        params["shared"] = init_shared_block(cfg, generator)
     return params
 
 
@@ -150,8 +157,21 @@ def init_stack(cfg, generator) -> dict:
 # prefill: forward + emit caches
 # ---------------------------------------------------------------------------
 def cache_shapes(cfg, B: int, S: int) -> dict:
-    """The shape of each cache of ``cfg`` for B sequences of S positions."""
+    """The shape of each cache of ``cfg`` for B sequences of S positions
+    (the reference's ``Model.cache_specs``): a tuple of shapes for the
+    ``"ssm"`` states (conv in the config's dtype, h in float32)."""
     n = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        K = cfg.ssm_conv
+        if cfg.family == "ssm":
+            conv = (n, B, K - 1, cfg.d_inner)
+            h = (n, B, cfg.d_inner, cfg.ssm_state)
+            return {"ssm": (conv, h)}
+        conv = (n, B, K - 1, cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state)
+        h = (n, B, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state)
+        kv = (len(hybrid_attn_slots(cfg)), B, S, cfg.num_kv_heads,
+              cfg.head_dim)
+        return {"ssm": (conv, h), "k": kv, "v": kv}
     if cfg.attn_type == "mla":
         return {"c_kv": (n, B, S, cfg.kv_lora_rank),
                 "k_rope": (n, B, S, cfg.qk_rope_dim)}
@@ -159,11 +179,49 @@ def cache_shapes(cfg, B: int, S: int) -> dict:
     return {"k": shape, "v": shape}
 
 
-def forward_prefill(layers, x, cfg, positions):
-    """x: (B,S,d) after embedding.  Returns (hidden, caches), the caches
-    exactly as long as the prompt, as on the reference."""
+def _empty_caches(x, cfg, B, S) -> dict:
+    """Caches of ``cache_shapes`` on x's device, in x's dtype (the SSM
+    states h in float32)."""
+    out = {}
+    for name, shape in cache_shapes(cfg, B, S).items():
+        if name == "ssm":
+            conv, h = shape
+            out[name] = (x.new_empty(conv),
+                         x.new_empty(h, dtype=torch.float32))
+        else:
+            out[name] = x.new_empty(shape)
+    return out
+
+
+def _slot_of(cfg) -> dict:
+    """{layer index: its shared-block cache slot}; empty but for
+    ``hybrid``."""
+    if cfg.family != "hybrid":
+        return {}
+    return {li: si for si, li in enumerate(hybrid_attn_slots(cfg))}
+
+
+def forward_prefill(layers, x, cfg, positions, shared=None):
+    """x: (B,S,d) after embedding; ``shared`` is the hybrid's shared block.
+    Returns (hidden, caches), the K/V caches exactly as long as the prompt,
+    as on the reference."""
     B, S = x.shape[:2]
-    caches = {n: x.new_empty(s) for n, s in cache_shapes(cfg, B, S).items()}
+    caches = _empty_caches(x, cfg, B, S)
+    if cfg.family in ("ssm", "hybrid"):
+        fwd = SSM.mamba1_fwd if cfg.family == "ssm" else SSM.mamba2_fwd
+        conv, h = caches["ssm"]
+        slots = _slot_of(cfg)
+        for i, lp in enumerate(layers):
+            hn = L.apply_norm(lp["ln"], x, cfg)
+            zero = (conv.new_zeros(conv.shape[1:]), h.new_zeros(h.shape[1:]))
+            y, (conv[i], h[i]) = fwd(lp["ssm"], hn, cfg, state=zero)
+            x = x + y
+            if i in slots:
+                x, _, (k, v) = attn_block_fwd(shared, x, cfg, positions,
+                                              causal=True, return_kv=True)
+                caches["k"][slots[i]] = k
+                caches["v"][slots[i]] = v
+        return x, caches
     for i, lp in enumerate(layers):
         out = attn_block_fwd(lp, x, cfg, positions, causal=not cfg.is_encoder,
                              return_kv=True)
@@ -176,10 +234,24 @@ def forward_prefill(layers, x, cfg, positions):
 # ---------------------------------------------------------------------------
 # decode: one token, caches carried
 # ---------------------------------------------------------------------------
-def forward_decode(layers, x, caches, pos, cfg):
-    """x: (B,1,d).  Each layer writes the token's cache row into its slice
-    of ``caches`` in place (where ``pos`` is inside them); returns
-    (hidden, caches)."""
+def forward_decode(layers, x, caches, pos, cfg, shared=None):
+    """x: (B,1,d).  Each layer writes its new state, or the token's cache
+    row (where ``pos`` is inside the caches), into its slice of ``caches``
+    in place; returns (hidden, caches)."""
+    if cfg.family in ("ssm", "hybrid"):
+        step = SSM.mamba1_step if cfg.family == "ssm" else SSM.mamba2_step
+        conv, h = caches["ssm"]
+        slots = _slot_of(cfg)
+        for i, lp in enumerate(layers):
+            hn = L.apply_norm(lp["ln"], x[:, 0], cfg)
+            y, (conv[i], h[i]) = step(lp["ssm"], hn, cfg, (conv[i], h[i]))
+            x = x + y[:, None]
+            if i in slots:
+                si = slots[i]
+                x, _ = attn_block_decode(shared, x, {"k": caches["k"][si],
+                                                     "v": caches["v"][si]},
+                                         pos, cfg)
+        return x, caches
     for i, lp in enumerate(layers):
         x, _ = attn_block_decode(lp, x, {n: c[i] for n, c in caches.items()},
                                  pos, cfg)

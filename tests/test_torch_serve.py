@@ -5,11 +5,12 @@ JAX reference, in-process on the CPU.
 Each model's weights are the reference's ``init_params(PRNGKey(k))``,
 carried over by ``params_from_reference``; prompts come from a numpy seed.
 The reference's steps are jitted as ``repro.launch.serve`` jits them,
-except in the MoE configurations, which are compiled with XLA's excess
-precision off (``rounded_jit``).
+except in the MoE, SSM and hybrid configurations, which are compiled with
+XLA's excess precision off (``rounded_jit``).
 Prefill runs over two attention chunks (the smoke configs' chunk is 16, the
-prompt 24 tokens), then 8 decode steps on caches zero-padded to prompt + 8,
-each step fed the reference's token.  Tolerances: float32 atol = rtol =
+prompt 24 tokens; three SSM chunks of 8), then 8 decode steps on caches
+zero-padded to prompt + 8 (the SSM states have no sequence axis), each
+step fed the reference's token.  Tolerances: float32 atol = rtol =
 1e-4 with every greedy token equal; bfloat16 atol 5e-2, with tokens equal
 wherever the reference's top-2 logit margin exceeds it, and, relative to
 scale, rms(port - reference) <= 2**-6 rms(reference) (four units of
@@ -30,6 +31,7 @@ from repro.data import pipeline as RP
 from repro.launch.mesh import compat_make_mesh
 from repro.models import layers as RL
 from repro.models import model as RM
+from repro.models import ssm as RSSM
 from repro.models import transformer as RT
 from repro.models.layers import MeshCtx
 from repro_torch.configs import base as PB
@@ -38,11 +40,12 @@ from repro_torch.data.kb_sources import LUBM_L, lubm_facts
 from repro_torch.engine.materialize import EngineKB, materialize
 from repro_torch.launch import dryrun, serve, train
 from repro_torch.models import model as PM
+from repro_torch.models import ssm as PSSM
 from repro_torch.models import transformer as PT
 
 SERVED = ["stablelm_12b", "starcoder2_15b", "command_r_35b",
           "nemotron_4_340b", "internvl2_1b", "qwen3_moe_30b_a3b",
-          "deepseek_v3_671b"]
+          "deepseek_v3_671b", "falcon_mamba_7b", "zamba2_1p2b"]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=5e-2, rtol=0)}
@@ -75,9 +78,9 @@ def rounded_jit(fn):
 def reference(arch, dtype, key, **overrides):
     """The reference model, its parameters, and its prefill / decode steps
     returning logits, jitted once per configuration (the bodies of
-    ``Model.prefill_step`` / ``decode_step`` before their argmax; a MoE
-    configuration's through ``rounded_jit``); ``overrides`` change fields
-    of the config."""
+    ``Model.prefill_step`` / ``decode_step`` before their argmax; a MoE,
+    SSM or hybrid configuration's through ``rounded_jit``); ``overrides``
+    change fields of the config."""
     cfg = RB.get_smoke_config(arch).with_(dtype=dtype, **overrides)
     mesh = compat_make_mesh((1, 1), ("data", "model"))
     mcx = MeshCtx(mesh=mesh, dp=("data",), tp="model")
@@ -101,7 +104,7 @@ def reference(arch, dtype, key, **overrides):
         h = RL.apply_norm(params["ln_final"], h, cfg)
         return RM.logits_fn(h, RM._unemb_t(params, cfg), cfg, mcx), caches
 
-    jit = rounded_jit if cfg.family == "moe" else jax.jit
+    jit = rounded_jit if cfg.family in ("moe", "ssm", "hybrid") else jax.jit
     return mdl, params, jit(prefill), jit(decode)
 
 
@@ -144,9 +147,25 @@ def check_logits(got, want, dtype):
 
 
 def check_caches(got, want, dtype):
+    """Every cache close, the ``"ssm"`` states (conv, h) each."""
     assert got.keys() == want.keys()
     for n in got:
-        assert_close(as_np(got[n]), as_np(want[n]), dtype)
+        pairs = zip(got[n], want[n]) if n == "ssm" else [(got[n], want[n])]
+        for g, w in pairs:
+            assert_close(as_np(g), as_np(w), dtype)
+
+
+def shapes(caches) -> dict:
+    return {n: tuple(s.shape for s in c) if n == "ssm" else c.shape
+            for n, c in caches.items()}
+
+
+def ref_pad_caches(caches, length):
+    """``PM.pad_caches`` on the reference's caches: K/V padded along the
+    sequence to ``length``, the SSM states as they are."""
+    return {n: c if n == "ssm" else jnp.pad(
+        c, ((0, 0), (0, 0), (0, length - c.shape[2]))
+        + ((0, 0),) * (c.ndim - 3)) for n, c in caches.items()}
 
 
 def prompt(cfg, seed, n=S):
@@ -171,11 +190,8 @@ def test_prefill_and_decode_equal_the_reference(arch, dtype):
                                        for k, v in batch.items()})
     tok = check_logits(logits_p, logits_r, dtype)
     check_caches(caches_p, caches_r, dtype)
-    assert {n: c.shape for n, c in caches_p.items()} \
-        == PT.cache_shapes(cfg, B, S)
-    caches_r = jax.tree.map(
-        lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, GEN))
-                          + ((0, 0),) * (c.ndim - 3)), caches_r)
+    assert shapes(caches_p) == PT.cache_shapes(cfg, B, S)
+    caches_r = ref_pad_caches(caches_r, S + GEN)
     caches_p = PM.pad_caches(caches_p, S + GEN)
     rng = np.random.default_rng(2)
     for t in range(GEN):
@@ -191,8 +207,9 @@ def test_prefill_and_decode_equal_the_reference(arch, dtype):
     check_caches(caches_p, caches_r, dtype)
     # every step wrote its token's cache rows: no padded position is left
     # at zero
-    for c in caches_p.values():
-        assert bool((c[:, :, S:].abs().sum(-1) > 0).all())
+    for n, c in caches_p.items():
+        if n != "ssm":
+            assert bool((c[:, :, S:].abs().sum(-1) > 0).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -313,19 +330,86 @@ def test_moe_decode_routes_at_its_own_capacity(capacity_factor):
         assert (gap > 1e-3) if capacity_factor < 4 else (gap <= 1e-5), gap
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("falcon_mamba_7b", "item 9 \\(SSM and hybrid forward\\)"),
-    ("zamba2_1p2b", "item 9 \\(SSM and hybrid forward\\)"),
-    ("causal_tree_attn", "item 11 \\(causal_tree_attn\\)")])
-def test_unported_configurations_raise(arch, item):
-    if arch == "causal_tree_attn":
-        cfg = PB.get_smoke_config("stablelm_12b").with_(causal_tree_attn=True)
-    else:
-        cfg = PB.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        PM.build(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        PM.params_from_reference({}, cfg)
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
+def test_ssm_decode_matches_reprefill(arch):
+    """On both packages, float32: one decode step after a prefill equals a
+    re-prefill of the prompt and the token it was fed, in the greedy token
+    (``tests/test_models_smoke.py``'s SSM check, its weights ``PRNGKey(5)``
+    and prompt ``PRNGKey(6)``) and in the logits.  Falcon's prompt is 16
+    tokens (two SSM chunks); zamba2's is 7, so that the re-prefill of 8
+    fits one SSM chunk (the reference's multi-chunk SSD is not exact:
+    ``test_reference_ssd_is_exact_in_one_chunk_only``), and its shared
+    block's K/V caches are padded to 8 so that the step writes its row."""
+    _, params, ref_prefill, ref_decode = reference(arch, "float32", 5)
+    port = port_of(arch, "float32", params)
+    n = 16 if arch == "falcon_mamba_7b" else port.cfg.ssm_chunk - 1
+    tokens = np.array(jax.random.randint(jax.random.PRNGKey(6), (B, n), 0,
+                                          port.cfg.vocab_size), np.int32)
+
+    def ref_steps():
+        logits, caches = ref_prefill(params, {"tokens": jnp.asarray(tokens)})
+        fed = np.asarray(logits).argmax(-1).astype(np.int32)
+        step, _ = ref_decode(params, ref_pad_caches(caches, n + 1),
+                             jnp.asarray(fed), jnp.asarray(n, jnp.int32))
+        again, _ = ref_prefill(params, {"tokens": jnp.asarray(
+            np.concatenate([tokens, fed[:, None]], 1))})
+        return as_np(step), as_np(again)
+
+    def port_steps():
+        logits, caches = port.prefill({"tokens": torch.from_numpy(tokens)})
+        fed = logits.argmax(-1).int()
+        step, _ = port.decode(PM.pad_caches(caches, n + 1), fed, n)
+        again, _ = port.prefill({"tokens": torch.cat(
+            [torch.from_numpy(tokens), fed[:, None]], 1)})
+        return as_np(step), as_np(again)
+
+    (step_r, again_r), (step_p, again_p) = ref_steps(), port_steps()
+    np.testing.assert_allclose(step_p, step_r, **TOL["float32"])
+    for step, again in ((step_r, again_r), (step_p, again_p)):
+        np.testing.assert_array_equal(step.argmax(-1), again.argmax(-1))
+        np.testing.assert_allclose(step, again, **TOL["float32"])
+
+
+def ssd_recurrence(xh, log_a, Bm, Cm):
+    """SSD step by step in float64: h_t = exp(log_a_t) h_{t-1} + x_t B_t^T,
+    y_t = h_t C_t (one group).  Returns (y, final h)."""
+    Bsz, n, nh, hd = xh.shape
+    h = np.zeros((Bsz, nh, hd, Bm.shape[-1]))
+    ys = []
+    for t in range(n):
+        h = np.exp(log_a[:, t])[..., None, None] * h + \
+            xh[:, t, :, :, None] * Bm[:, t, 0][:, None, None, :]
+        ys.append(np.einsum("bhdn,bn->bhd", h, Cm[:, t, 0]))
+    return np.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("chunk", [32, 8])
+def test_reference_ssd_is_exact_in_one_chunk_only(chunk):
+    """ROADMAP Queue 3: the reference's ``ssd_chunked`` contracts its
+    inter-chunk term over the diagonal of the chunk states
+    (``src/repro/models/ssm.py:254``), so it equals a step-by-step
+    recurrence only while the sequence fits one chunk.  B = 2, S = 32,
+    nh = N = 8, hd = 16: with one chunk of 32, y equals the recurrence;
+    with four chunks of 8, y is off by more than 1 (values up to about
+    40); the final state is right in both.  The port keeps the
+    reference's arithmetic and equals it in both cases."""
+    rng = np.random.default_rng(0)
+    xh = rng.normal(0, 1, (2, 32, 8, 16)).astype(np.float32)
+    log_a = -rng.uniform(0.0, 0.5, (2, 32, 8)).astype(np.float32)
+    Bm, Cm = (rng.normal(0, 1, (2, 32, 1, 8)).astype(np.float32)
+              for _ in range(2))
+    y_rec, h_rec = ssd_recurrence(xh, log_a, Bm, Cm)
+    y_r, h_r = (np.asarray(a) for a in RSSM.ssd_chunked(
+        *(jnp.asarray(a) for a in (xh, log_a, Bm, Cm)), chunk))
+    y_p, h_p = (a.numpy() for a in PSSM.ssd_chunked(
+        *(torch.from_numpy(a) for a in (xh, log_a, Bm, Cm)), chunk))
+    np.testing.assert_allclose(y_p, y_r, **TOL["float32"])
+    np.testing.assert_allclose(h_p, h_r, **TOL["float32"])
+    for y, h in ((y_r, h_r), (y_p, h_p)):
+        np.testing.assert_allclose(h, h_rec, atol=1e-4, rtol=1e-4)
+        gap = np.abs(y - y_rec).max()
+        assert (gap <= 1e-4 * np.abs(y_rec).max()) if chunk == 32 \
+            else gap > 1.0, gap
 
 
 def test_training_and_dry_run_raise():
@@ -358,6 +442,16 @@ def test_serve_launcher_prints_the_references_lines(capsys):
                                        ("deepseek_v3_671b",
                                         "deepseek-v3-671b")])
 def test_serve_launcher_serves_the_moe_configurations(arch, name, capsys):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert re.fullmatch(rf"\[serve\] {name}: prefill\(4x32\)=\d+ms  "
+                        r"decode 32 toks: [\d.]+ms/tok", lines[0]), lines
+    assert re.fullmatch(r"\[serve\] sample: \[[\d ]+\]", lines[1]), lines
+
+
+@pytest.mark.parametrize("arch,name", [("falcon_mamba_7b", "falcon-mamba-7b"),
+                                       ("zamba2_1p2b", "zamba2-1.2b")])
+def test_serve_launcher_serves_the_ssm_configurations(arch, name, capsys):
     serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     assert re.fullmatch(rf"\[serve\] {name}: prefill\(4x32\)=\d+ms  "

@@ -147,13 +147,42 @@ Phases, each fatal on failure:
    ``causal_tree_attn`` over 2 x 2048, also against the same copy
    without the tree.  It adds the ``serve_ssm`` line and a
    ``launches_serve_ssm`` key to each kernel row.
+15. training (``Model.loss_fn`` / ``train_step``, ``train/``,
+   ``launch/train.py``; no kernel of its own): phase 12's KB materialized
+   and linearized again (every kernel must launch, the tokens equal phase
+   12's).  ``lm_100m`` at the linearizer's vocabulary (703 M): two
+   float32 ``train_step``s (TF32 off) on 2 x 256 of the KB's tokens, card
+   against CPU from the same weights: loss, ce and grad_norm within
+   ``F32_METRIC_REL``, ``lr`` equal, every gradient within
+   ``F32_GRAD_RMS`` in rms and every weight's update within
+   ``F32_UPDATE_RMS``, with two planted faults above their bounds (the
+   attention output detached, Adam's bias correction dropped); then in
+   bfloat16 through ``train`` at 8 x 256 with checkpoints every 3 steps:
+   6 steps, then a second call to 8 that must resume at 6 with the data
+   state restored and equal an uninterrupted 8-step run to the bit, both
+   under ``torch.use_deterministic_algorithms``; then the 8 steps with
+   the defaults, timed (step ms, tokens/s, peak, the example's first and
+   last loss).
+   ``zamba2_1p2b``'s ``CONFIG`` whole through ``launch.train.main`` at 8 x
+   2048 (2 microbatches, remat full), 4 steps: finite losses and gradient
+   norms, the step-0 loss within 0.2 of ln(V) + d_model 0.02^2 / 2 (what
+   random weights give), step ms, tokens/s, peak, one profiled step and 6
+   N tokens FLOP/s against the bf16 peak.  2-layer float32 copies at full
+   width, card against CPU: one ``train_step`` of zamba2 (shared block
+   after every 2nd layer, 2 x 1040), ``stablelm_12b`` with ``flash_vjp``
+   (2 x 1040; loss and gradients, also against the plain backward) and
+   ``falcon_mamba_7b`` (2 x 520; loss and gradients through the Mamba-1
+   scan's backward, a fault planted in its adjoint).  The CPU's sides run
+   on a background thread.  It adds the ``train`` line
+   and a ``launches_train`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
 ``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
-``{"serve_ssm": {...}}`` line, a ``{"kernels": [...]}`` line,
+``{"serve_ssm": {...}}`` line, a ``{"train": {...}}`` line, a
+``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
@@ -172,7 +201,11 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# phase 15 holds a resumed bfloat16 run to the bit under deterministic
+# algorithms, which need cuBLAS's fixed workspace; cuBLAS reads it once
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LUBM_UNIV = 2000
@@ -260,15 +293,19 @@ def device_ms(fn, reps: int = 10) -> float:
                for e in _device_events(prof)) / 1e3 / reps
 
 
-def profile_run(name: str, fn) -> dict:
+def profile_run(name: str, fn, host_ops: bool = True) -> dict:
     """Wall time of ``fn`` (ending in a synchronize), the device's busy
     time in it from a torch.profiler trace, the number of device entries
-    (kernels, copies, memsets) and the ones that took the most time."""
+    (kernels, copies, memsets) and the ones that took the most time.
+    Without ``host_ops`` the trace holds the device's entries only (a
+    smaller trace where other threads run host ops meanwhile)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2483,6 +2520,520 @@ def serve_ssm_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training, on the KB's tokens and at full width
+# ---------------------------------------------------------------------------
+TRAIN_F32 = {"batch": 2, "seq": 256, "steps": 2}   # lm_100m, card vs CPU
+TRAIN_BF16 = {"batch": 8, "seq": 256, "steps": 8, "ckpt_every": 3,
+              "resume_at": 6}                      # lm_100m through train()
+ZAMBA_ARGS = ["--arch", "zamba2_1p2b", "--batch", "8", "--seq", "2048",
+              "--steps", "4"]
+TRAIN_2L = {"batch": 2, "seq": 1040,   # stablelm's and zamba2's 2-layer
+                                      # copies: two attention chunks, four
+                                      # SSD chunks and a part
+            "falcon_seq": 520}        # falcon_mamba_7b's: two scan chunks
+                                      # and a part (the CPU's time)
+F32_METRIC_REL = 1e-4   # card against CPU, float32 (TF32 off): loss, ce,
+                        # grad_norm, relative
+F32_GRAD_RMS = 1e-3     # each gradient: rms(card - CPU) / rms(CPU), or
+ZERO_FLOOR = 1e-6       # / (ZERO_FLOOR x the largest such rms) where the
+                        # CPU's is below that (a gradient zero but for
+                        # rounding)
+F32_UPDATE_RMS = 1e-2   # each weight after the steps: rms(card - CPU) /
+                        # rms(CPU's update), as the same fraction
+BF16_PEAK_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
+INIT_STD = 0.02            # the std every weight matrix is drawn with
+LN_VOCAB_TOL = 0.2         # zamba2's step-0 loss against its expectation
+CARD = "cuda"              # the device phase 15 trains on
+CPU_JOB_THREADS = max(1, (os.cpu_count() or 1) - 2)   # the CPU's sides
+
+
+def rel_errors(got, want, init=None) -> dict:
+    """Per name, taken on the card: rms(got - want) over rms(want), or with
+    ``init`` over rms(want - init) (the reference run's update); over
+    ``ZERO_FLOOR`` times the largest such rms where it is below that."""
+    def on_card(t):
+        return t.detach().to(CARD, torch.float32)
+
+    def scale(n):
+        w = on_card(want[n])
+        return rms(w if init is None else w - on_card(init[n]))
+    scales = {n: scale(n) for n in want}
+    floor = ZERO_FLOOR * max(scales.values())
+    return {n: rms(on_card(got[n]) - on_card(want[n]))
+            / max(scales[n], floor, 1e-30) for n in want}
+
+
+def worst(errs: dict) -> list:
+    name = max(errs, key=errs.get)
+    return [name, errs[name]]
+
+
+def f32_steps(mdl, batches, init=None, keep_grads=True, keep_after=True):
+    """``len(batches)`` train_steps of ``mdl``, from the weights ``init``
+    where given.  With ``keep_grads`` each call of the instance's
+    ``_grads`` (one per microbatch) keeps its gradients, and with
+    ``keep_after`` the weights after the last step are kept, on the
+    model's device.  Returns {"metrics": per step, "grads": per call,
+    "after"}."""
+    from repro_torch.train import optimizer as OPT
+    if init is not None:
+        mdl.load_state_dict(init)
+    calls, inner = [], mdl._grads
+
+    def wrapped(params, batch):
+        loss, met, grads = inner(params, batch)
+        if keep_grads:
+            calls.append(grads)
+        return loss, met, grads
+    mdl._grads = wrapped
+    params = dict(mdl.named_parameters())
+    opt = OPT.init_opt_state(params, mdl.opt_cfg)
+    rec = {"metrics": []}
+    try:
+        for i, b in enumerate(batches):
+            opt, met = mdl.train_step(opt, b, i)
+            rec["metrics"].append({k: float(v) for k, v in met.items()})
+    finally:
+        del mdl._grads, opt
+    if keep_grads:
+        rec["grads"] = calls
+    if keep_after:
+        rec["after"] = {n: p.detach().clone() for n, p in params.items()}
+    return rec
+
+
+def loss_and_grads(mdl, batch) -> dict:
+    """The loss, ce and gradients of ``batch`` (``Model._grads``), in
+    ``f32_steps``' record."""
+    loss, met, grads = mdl._grads(dict(mdl.named_parameters()), batch)
+    return {"metrics": [{"loss": float(loss), "ce": float(met["ce"])}],
+            "grads": [grads]}
+
+
+def held_f32(got, want, init=None) -> dict:
+    """Record ``got`` against ``want`` (both from ``f32_steps`` or
+    ``loss_and_grads``, from the same weights ``init``): the largest metric
+    error, whether ``lr`` is equal, the worst gradient and (with ``init``)
+    weight-update errors, and whether each is within its bound."""
+    rec = {}
+    metric = [abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+              for g, w in zip(got["metrics"], want["metrics"])
+              for k in ("loss", "ce", "grad_norm") if k in g and k in w]
+    if metric:
+        rec["metric_rel_max"] = max(metric)
+    if all("lr" in m for m in got["metrics"] + want["metrics"]):
+        rec["lr_equal"] = all(g["lr"] == w["lr"] for g, w in zip(
+            got["metrics"], want["metrics"]))
+    if "grads" in got and "grads" in want:
+        rec["grad_rms_rel_worst"] = max(
+            (worst(rel_errors(g, w)) for g, w in zip(got["grads"],
+                                                     want["grads"])),
+            key=lambda e: e[1])
+    if init is not None and "after" in got and "after" in want:
+        rec["update_rms_rel_worst"] = worst(rel_errors(
+            got["after"], want["after"], init))
+    rec["ok"] = rec.get("metric_rel_max", 0) <= F32_METRIC_REL and \
+        rec.get("lr_equal", True) and \
+        rec.get("grad_rms_rel_worst", [0, 0])[1] <= F32_GRAD_RMS and \
+        rec.get("update_rms_rel_worst", [0, 0])[1] <= F32_UPDATE_RMS
+    return rec
+
+
+class Patched:
+    """While entered, ``module.name`` is ``value``: a planted fault."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.old)
+
+
+# name: (module, attribute replaced, what of the run is kept, the key of
+# ``held_f32`` that must read above its bound, the bound)
+TRAIN_FAULTS = {
+    # the attention output cut from the graph: wq, wk and wv get no
+    # gradient (their error reads 1)
+    "attention_detached": ("repro_torch.models.layers", "flash_attention",
+                           "grads", "grad_rms_rel_worst", F32_GRAD_RMS),
+    # Adam without bias correction: the first update is 0.45 lr, not lr
+    "no_bias_correction": ("repro_torch.train.optimizer", "_bias_correction",
+                           "after", "update_rms_rel_worst", F32_UPDATE_RMS),
+}
+
+
+def fault_value(name):
+    from repro_torch.models import layers
+    if name == "attention_detached":
+        plain = layers.flash_attention
+        return lambda *a, **k: plain(*a, **k).detach()
+    return lambda beta, step: 1.0
+
+
+def timed(fn, *args, **kwargs):
+    """(fn's result, its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if CARD == "cuda":
+        sync()
+    return out, time.perf_counter() - t0
+
+
+def kb_batches(data, n, rows):
+    """``n`` batches of the linearizer's stream, each cut to ``rows``."""
+    out = []
+    for _ in range(n):
+        b = data.next()
+        out.append({k: v[:rows] for k, v in b.items()})
+    return out
+
+
+class StepClock:
+    """While entered, every ``Model.train_step`` on the card is timed (a
+    synchronize at either end) and its loss and gradient norm read; the
+    call at step ``profile_step`` runs under ``profile_run``."""
+
+    def __init__(self, profile_step=None):
+        self.profile_step = profile_step
+        self.steps, self.profile = [], None
+
+    def __enter__(self):
+        from repro_torch.models import model
+        self.cls, self.inner = model.Model, model.Model.train_step
+        clock = self
+
+        def timed(mdl, opt_state, batch, step):
+            if mdl.device.type != CARD:
+                return clock.inner(mdl, opt_state, batch, step)
+            out = []
+            sync()
+            t0 = time.perf_counter()
+            if step == clock.profile_step:
+                clock.profile = profile_run(
+                    f"{mdl.cfg.name} train step", lambda: out.append(
+                        clock.inner(mdl, opt_state, batch, step)),
+                    host_ops=False)
+            else:
+                out.append(clock.inner(mdl, opt_state, batch, step))
+                sync()
+            met = out[0][1]
+            clock.steps.append({"step": step,
+                                "ms": (time.perf_counter() - t0) * 1e3,
+                                "loss": float(met["loss"]),
+                                "grad_norm": float(met["grad_norm"])})
+            return out[0]
+        self.cls.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.inner
+
+    def timing(self, batch, seq, skip=1) -> dict:
+        """Every step's ms, and the median and tokens/s over the steps
+        from ``skip`` on but the profiled one."""
+        ms = [s["ms"] for s in self.steps
+              if s["step"] >= skip and s["step"] != self.profile_step]
+        med = statistics.median(ms)
+        return {"step_ms": [s["ms"] for s in self.steps],
+                "median_step_ms": med,
+                "tokens_per_s": batch * seq / (med / 1e3)}
+
+
+def bf16_train(cfg, data, build_dir) -> dict:
+    """``cfg`` in bfloat16 through ``train``.  Under deterministic
+    algorithms: 6 steps checkpointed every 3, then a second call to 8
+    steps from the initial weights and a fresh data state, which must
+    resume at step 6 with the data state restored, then 8 uninterrupted
+    steps from the same weights and data; the resumed weights must equal
+    the uninterrupted ones to the bit.  Then the 8 uninterrupted steps
+    again with the defaults, timed (the resumed weights' share of equal
+    elements against these is printed, not held).  The peak memory counts
+    what the card held before (``held_bytes``)."""
+    import copy
+    from repro_torch.models.model import build
+    from repro_torch.train.train_loop import train
+    B, S = TRAIN_BF16["batch"], TRAIN_BF16["seq"]
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mdl = build(cfg.with_(dtype="bfloat16"), CARD,
+                torch.Generator(device=CARD).manual_seed(0), training=True)
+    init = {n: t.clone() for n, t in mdl.state_dict().items()}
+    fresh = copy.deepcopy(data)
+    start = fresh.step
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build_dir)
+    lines = []
+
+    def run(steps, data, ckpt_dir=None):
+        mdl.load_state_dict(init)
+        params, _, losses = train(mdl, data, steps=steps, ckpt_dir=ckpt_dir,
+                                  ckpt_every=TRAIN_BF16["ckpt_every"],
+                                  log_every=1, log=lines.append)
+        return {n: p.detach().clone() for n, p in params.items()}, losses
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        run(TRAIN_BF16["resume_at"], copy.deepcopy(fresh), ckpt)
+        first_s = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(ckpt))
+        # the resume reads the newest; the older one only takes disk
+        shutil.rmtree(os.path.join(ckpt, ckpts[0]))
+        resumed_data = copy.deepcopy(fresh)
+        t0 = time.perf_counter()
+        resumed, _ = run(TRAIN_BF16["steps"], resumed_data, ckpt)
+        resume_s = time.perf_counter() - t0
+        ckpts += sorted(os.listdir(ckpt))
+        whole, _ = run(TRAIN_BF16["steps"], copy.deepcopy(fresh))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    with StepClock() as clock:
+        timed_run, losses = run(TRAIN_BF16["steps"], copy.deepcopy(fresh))
+
+    def equal_frac(got, want):
+        return sum(int((got[n] == w).sum()) for n, w in want.items()) \
+            / sum(w.numel() for w in want.values())
+    first, last = losses[0][1], losses[-1][1]
+    rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
+           "params": sum(w.numel() for w in whole.values()), **TRAIN_BF16,
+           **clock.timing(B, S), "losses": [l for _, l in losses],
+           "done": f"[done] loss {first:.3f} -> {last:.3f} "
+                   f"({'improved' if last < first else 'NO IMPROVEMENT'})",
+           "resume_log": [ln for ln in lines if "resumed" in ln],
+           "checkpoints": ckpts, "first_call_s": first_s,
+           "resume_call_s": resume_s,
+           "data_steps": [start, resumed_data.step],
+           "resume_rms_rel_worst": worst(rel_errors(resumed, whole, init)),
+           "resume_bit_equal_frac": equal_frac(resumed, whole),
+           "resume_bit_equal_frac_default": equal_frac(resumed, timed_run),
+           "held_bytes": held,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    rec["ok"] = (rec["resume_log"] == [
+        f"[train] resumed from step {TRAIN_BF16['resume_at']}"]
+        and resumed_data.step == start + TRAIN_BF16["steps"]
+        and all(torch.equal(resumed[n], w) for n, w in whole.items())
+        and all(np.isfinite(rec["losses"])))
+    del mdl, resumed, whole, timed_run, init
+    torch.cuda.empty_cache()
+    log(f"[train] kb_lm bfloat16 {json.dumps(rec)}")
+    log(rec["done"])
+    return rec
+
+
+def zamba_whole() -> dict:
+    """``zamba2_1p2b``'s ``CONFIG`` whole (38 layers, microbatches 2,
+    remat full, bfloat16) through ``repro_torch.launch.train.main`` at 8 x
+    2048 for 4 steps; every loss and gradient norm finite, the step-0 loss
+    within ``LN_VOCAB_TOL`` of what random weights give: the final norm
+    leaves h at unit rms, so each logit is normal with variance s^2 =
+    d_model x ``INIT_STD``^2 (0.82) and the cross-entropy of a random
+    label is ln(V) + s^2 / 2 (10.78, not ln(32000) = 10.37: the logits
+    are not uniform); times, peak memory, one profiled step (the last)
+    and model FLOP/s (6 N tokens) against the bf16 peak."""
+    import math
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launch
+    cfg = get_config("zamba2_1p2b")
+    B, S = 8, 2048
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepClock(profile_step=3) as clock:
+        launch.main(ZAMBA_ARGS)
+    wall = time.perf_counter() - t0
+    n = cfg.param_counts()["total"]
+    tm = clock.timing(B, S)
+    flops = 6 * n * B * S / (tm["median_step_ms"] / 1e3)
+    losses = [s["loss"] for s in clock.steps]
+    norms = [s["grad_norm"] for s in clock.steps]
+    rec = {"params": n, "batch": B, "seq": S, "microbatches":
+           cfg.microbatches, "remat": cfg.remat, **tm, "losses": losses,
+           "grad_norms": norms, "ln_vocab": math.log(cfg.vocab_size),
+           "expected_step0_loss": math.log(cfg.vocab_size)
+           + cfg.d_model * INIT_STD ** 2 / 2,
+           "call_s": wall, "held_bytes": held,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "profiled_step": clock.profile,
+           "model_flops_per_s": flops,
+           "bf16_peak_share": flops / BF16_PEAK_FLOPS,
+           "card": torch.cuda.get_device_name(0)}
+    rec["ok"] = len(losses) == 4 and all(np.isfinite(losses + norms)) and \
+        abs(losses[0] - rec["expected_step0_loss"]) <= LN_VOCAB_TOL
+    torch.cuda.empty_cache()
+    log(f"[train] zamba2_1p2b {json.dumps(rec)}")
+    return rec
+
+
+def cpu_job(fn, mdl, *args):
+    """``timed(fn, mdl, *args)`` on this thread with ``CPU_JOB_THREADS``
+    intra-op threads, leaving cores to the card's host work and the
+    checkpoint writer."""
+    torch.set_num_threads(CPU_JOB_THREADS)
+    return timed(fn, mdl, *args)
+
+
+def train_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
+    """Phase 15.  (a) Phase 12's KB materialized and linearized again
+    (every kernel must launch, the tokens equal phase 12's).  (b)
+    ``lm_100m`` at the linearizer's vocabulary, full width and depth: two
+    float32 ``train_step``s on the card and on the CPU from the same
+    weights and batches (2 x 256 of the KB's tokens): loss, ce, grad_norm
+    and lr, every gradient and the weights after within their bounds,
+    with two planted faults above them; then in bfloat16 through
+    ``train`` with checkpoints (``bf16_train``).  (c) ``zamba2_1p2b``
+    whole through the launcher (``zamba_whole``).  (d) 2-layer float32
+    copies at full width, card against CPU: one ``train_step`` of zamba2
+    with the shared block after every 2nd layer (2 x 1040: four SSD
+    chunks and a part); ``stablelm_12b`` with ``flash_vjp`` over 2 x 1040
+    (two attention chunks; loss and gradients), also against the same
+    copy without it; ``falcon_mamba_7b``'s loss and gradients over 2 x 520
+    (the Mamba-1 scan's backward), with a fault planted in its adjoint.
+    Each model is copied to the host and queued on a background thread
+    (``cpu_job``) before the card's float32 steps, which keep their
+    records on the card; the CPU works while the card runs the rest of
+    (d), (b)'s bfloat16 part and (c), and every comparison comes at the
+    end.
+    Returns the ``train`` record and (a)'s kernel launches."""
+    import copy
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops as KO
+    from repro_torch.models import ssm
+    from repro_torch.models.model import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) the KB's tokens
+    KO.reset_launch_counts()
+    tokens, data, kb_rec = kb_tokens(facts, lubm_nfacts, lubm_stats)
+    launches = KO.launch_counts()
+    if not torch.equal(tokens, tokens_12):
+        fail("train: the KB's tokens differ from phase 12's")
+    out = {"kb": kb_rec}
+    cfg = lm_100m(data.vocab_size)
+    pool = ThreadPoolExecutor(max_workers=1)
+
+    def card_model(c):
+        return build(c, CARD, torch.Generator(device=CARD).manual_seed(0),
+                     training=True)
+
+    # (b), (d): copies on the host for the CPU's sides, each queued on the
+    # CPU's thread at once, and the card's float32 steps (each record kept
+    # on the card)
+    jobs = []
+
+    def on_cpu(fn, mdl, *args):
+        jobs.append(pool.submit(cpu_job, fn, copy.deepcopy(mdl).to("cpu"),
+                                *args))
+    f32 = cfg.with_(dtype="float32")
+    mdl = card_model(f32)
+    init = {n: t.clone() for n, t in mdl.state_dict().items()}
+    batches = kb_batches(copy.deepcopy(data), TRAIN_F32["steps"],
+                         TRAIN_F32["batch"])
+    on_cpu(f32_steps, mdl, batches)
+    lm, lm_s = timed(f32_steps, mdl, batches)
+    faults = {}
+    for name, (module, attr, part, _, _) in TRAIN_FAULTS.items():
+        with Patched(sys.modules[module], attr, fault_value(name)):
+            faults[name] = f32_steps(mdl, batches, init, part == "grads",
+                                     part == "after")
+    del mdl
+
+    zcfg = get_config("zamba2_1p2b").with_(num_layers=2, hybrid_attn_every=2,
+                                           dtype="float32")
+    scfg = get_config("stablelm_12b").with_(num_layers=2, dtype="float32",
+                                            microbatches=1)
+    fcfg = get_config("falcon_mamba_7b").with_(num_layers=2, dtype="float32")
+    tok = torch.randint(0, min(c.vocab_size for c in (zcfg, scfg, fcfg)),
+                        (TRAIN_2L["batch"], TRAIN_2L["seq"] + 1),
+                        generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tok[:, :-1].numpy(), "labels": tok[:, 1:].numpy()}
+    fbatch = {k: v[:, :TRAIN_2L["falcon_seq"]] for k, v in batch.items()}
+    zmdl = card_model(zcfg)
+    zinit = {n: t.clone() for n, t in zmdl.state_dict().items()}
+    on_cpu(f32_steps, zmdl, [batch])
+    zamba, zamba_s = timed(f32_steps, zmdl, [batch])
+    del zmdl
+    smdl = card_model(scfg.with_(flash_vjp=True))
+    sinit = {n: t.clone() for n, t in smdl.state_dict().items()}
+    on_cpu(loss_and_grads, smdl, batch)
+    vjp, vjp_s = timed(f32_steps, smdl, [batch], None, True, False)
+    smdl.cfg = scfg
+    plain = f32_steps(smdl, [batch], sinit, True, False)
+    vjp_vs_flash = {**held_f32(vjp, plain), "card_s": vjp_s}
+    del smdl, sinit, plain
+    torch.cuda.empty_cache()
+    # falcon's Mamba-1 scan under autograd (``_DiagScan``): loss and
+    # gradients, the peak above what the card held, and a fault planted in
+    # the adjoint (its carry dropped: g_t = dL/dh_t)
+    fmdl = card_model(fcfg)
+    on_cpu(loss_and_grads, fmdl, fbatch)
+    f_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    falcon, falcon_s = timed(loss_and_grads, fmdl, fbatch)
+    f_peak = torch.cuda.max_memory_allocated() - f_held
+    with Patched(ssm, "_adjoint", lambda a, gh, chunk: gh):
+        falcon_fault = loss_and_grads(fmdl, fbatch)
+    del fmdl
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16 through train(), (c) zamba2 whole, while the CPU works
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    out["kb_lm_bfloat16"] = bf16_train(cfg, copy.deepcopy(data),
+                                       os.path.join(HERE, "build"))
+    out["zamba2_1p2b"] = zamba_whole()
+
+    # the CPU's records, and every comparison
+    t0 = time.perf_counter()
+    (lm_cpu, lm_cpu_s), (z_cpu, z_cpu_s), (s_cpu, s_cpu_s), \
+        (f_cpu, f_cpu_s) = (job.result() for job in jobs)
+    torch.set_num_threads(os.cpu_count() or 1)
+    pool.shutdown()
+    out["cpu_wait_s"] = time.perf_counter() - t0
+    rec = {"config": {k: getattr(f32, k) for k in CONFIG_KEYS},
+           "params": sum(t.numel() for t in init.values()), **TRAIN_F32,
+           "card_s": lm_s, "cpu_s": lm_cpu_s, **held_f32(lm, lm_cpu, init)}
+    for name, (_, _, _, key, bound) in TRAIN_FAULTS.items():
+        rec[f"fault_{name}"] = held_f32(faults[name], lm_cpu, init)[key]
+        rec["ok"] = rec["ok"] and rec[f"fault_{name}"][1] > bound
+    out["kb_lm_float32"] = rec
+    out["zamba2_1p2b_2_layers"] = {
+        "batch": TRAIN_2L["batch"], "seq": TRAIN_2L["seq"],
+        "card_s": zamba_s, "cpu_s": z_cpu_s, **held_f32(zamba, z_cpu, zinit)}
+    rec = {"batch": TRAIN_2L["batch"], "seq": TRAIN_2L["falcon_seq"],
+           "card_s": falcon_s, "cpu_s": f_cpu_s, "peak_bytes": f_peak,
+           **held_f32(falcon, f_cpu),
+           "fault_adjoint_no_carry": held_f32(
+               falcon_fault, f_cpu)["grad_rms_rel_worst"]}
+    rec["ok"] = rec["ok"] and rec["fault_adjoint_no_carry"][1] > F32_GRAD_RMS
+    out["falcon_mamba_7b_2_layers"] = rec
+    out["stablelm_12b_2_layers_flash_vjp"] = {
+        "batch": TRAIN_2L["batch"], "seq": TRAIN_2L["seq"],
+        "card_vs_cpu": {**held_f32(vjp, s_cpu), "cpu_s": s_cpu_s},
+        "card_vs_flash": vjp_vs_flash}
+    out["compare_s"] = time.perf_counter() - t0 - out["cpu_wait_s"]
+    del lm, lm_cpu, faults, init, zamba, z_cpu, zinit, vjp, s_cpu, \
+        falcon, falcon_fault, f_cpu
+    torch.cuda.empty_cache()
+    for name in ("kb_lm_float32", "zamba2_1p2b_2_layers",
+                 "falcon_mamba_7b_2_layers",
+                 "stablelm_12b_2_layers_flash_vjp"):
+        log(f"[train] {name} {json.dumps(out[name])}")
+    checks = [out["kb_lm_float32"]["ok"], out["kb_lm_bfloat16"]["ok"],
+              out["zamba2_1p2b"]["ok"], out["zamba2_1p2b_2_layers"]["ok"],
+              out["falcon_mamba_7b_2_layers"]["ok"],
+              out["stablelm_12b_2_layers_flash_vjp"]["card_vs_cpu"]["ok"],
+              vjp_vs_flash["ok"]]
+    if not all(checks):
+        fail(f"train: {checks}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -2759,7 +3310,6 @@ def main() -> int:
     t0 = time.perf_counter()
     served_ssm, launches_ssm = serve_ssm_phase(facts, lubm_nfacts,
                                                lubm_stats, tokens_12)
-    del tokens_12
     for r in rows:
         r["launches_serve_ssm"] = launches_ssm.get(r["name"], 0)
         r["launches"] += r["launches_serve_ssm"]
@@ -2768,6 +3318,23 @@ def main() -> int:
     if any(launches_ssm[k] == 0 for k in KERNELS):
         fail(f"a kernel was never launched on the KB->SSM LM path: "
              f"{launches_ssm}")
+
+    # 15. training: the KB's tokens through lm_100m (float32 card against
+    # CPU, bfloat16 with checkpoints and resume), zamba2_1p2b whole, and
+    # 2-layer float32 copies card against CPU
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained, launches_train = train_phase(facts, lubm_nfacts, lubm_stats,
+                                          tokens_12)
+    del tokens_12
+    for r in rows:
+        r["launches_train"] = launches_train.get(r["name"], 0)
+        r["launches"] += r["launches_train"]
+    log(f"[train] {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches_train}")
+    if any(launches_train[k] == 0 for k in KERNELS):
+        fail(f"a kernel was never launched on the KB->training path: "
+             f"{launches_train}")
 
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
@@ -2781,6 +3348,7 @@ def main() -> int:
     print(json.dumps({"serve": {**served, "card": smi}}))
     print(json.dumps({"serve_moe": {**served_moe, "card": smi}}))
     print(json.dumps({"serve_ssm": {**served_ssm, "card": smi}}))
+    print(json.dumps({"train": {**trained, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -52,12 +52,12 @@ import json
 import os
 import pickle
 import shutil
-import signal
 
 import numpy as np
 
 from repro_torch.engine import faultinject
 from repro_torch.engine.relation import Relation, host_order, lex_order
+from repro_torch.train.fault import PreemptionGuard
 
 FORMAT = 1
 
@@ -238,33 +238,6 @@ class RecoveryManager:
 # ---------------------------------------------------------------------------
 # SIGTERM guard (process singleton; chained so outer handlers still run)
 # ---------------------------------------------------------------------------
-class PreemptionGuard:
-    """Installs signal handlers that set a flag the executor polls at its
-    boundaries.  ``chain=True`` keeps any previously installed Python
-    handler live: the guard sets its flag and then forwards the signal."""
-
-    def __init__(self, signals=(signal.SIGTERM,), chain: bool = False):
-        self.requested = False
-        self.chain = chain
-        self._prev = {}
-        for s in signals:
-            try:
-                self._prev[s] = signal.signal(s, self._handler)
-            except ValueError:
-                pass   # not the main thread
-
-    def _handler(self, signum, frame):
-        self.requested = True
-        if self.chain:
-            prev = self._prev.get(signum)
-            if callable(prev):
-                prev(signum, frame)
-
-    def restore(self):
-        for s, h in self._prev.items():
-            signal.signal(s, h)
-
-
 _GUARD = None
 
 

@@ -4,9 +4,11 @@ a KV cache, and MLA (multi-head latent attention) with its latent cache.
 
 Counterpart of ``repro.models.layers`` on one device: there is no mesh, so
 the tensor-parallel degree is 1 and ``pad_to(H, 1) == H``.  Flags that only
-change sharding or the backward pass (``explicit_tp``, ``flash_vjp``,
-``remat``, ``zero1``, ``fsdp``, ``microbatches``) leave this forward pass
-as it is.
+change sharding (``explicit_tp``, ``zero1``, ``fsdp``) leave this forward
+pass as it is.  ``flash_vjp`` runs training and prefill attention through
+``flash_attention_vjp``, whose backward recomputes the probabilities block
+by block from the saved ``(q, k, v, out, m, l)``; without it autograd
+differentiates ``flash_attention`` as it runs.
 
 Conventions, as in the reference: parameters are mappings of tensors (the
 modules hold them as ``nn.ParameterDict``), weights are in the config's
@@ -35,7 +37,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: held by the module, never trained here."""
+    """A weight held by its module, built frozen: a model built for
+    training (``models.model.build(..., training=True)``) makes its
+    weights trainable."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -153,10 +157,16 @@ def _qk_norm(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool, chunk: int):
-    """Chunked attention.  q: (B,S,H,D); k, v: (B,S,H,D) (kv already
-    repeated to H).  Loops over q-chunks (outer) and kv-chunks (inner,
-    online softmax), as the reference's ``lax.map`` over ``lax.scan`` does.
+def pad_seq(x, pad):
+    """x (B,S,...) zero-padded by ``pad`` positions along S."""
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], dim=1)
+
+
+def _flash_blocks(q, k, v, causal: bool, c: int, S_real: int):
+    """The online-softmax forward over q-chunks (outer) and kv-chunks
+    (inner) of length ``c`` (S a multiple of it), keys past ``S_real``
+    masked.  Returns (out (B,S,H,Dv) float32, m, l (B,H,S) float32): the
+    normalised output and each row's running max and sum.
 
     Under a causal mask the kv-chunks wholly after a q-chunk are skipped:
     there every score is -1e30, so the reference's step multiplies its
@@ -164,16 +174,10 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int):
     them bit for bit as they were."""
     B, S, H, D = q.shape
     Dv = v.shape[-1]
-    c = min(chunk, S)
-    S_real = S
-    if S % c:
-        pad = (0, 0, 0, 0, 0, c - S % c)
-        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
-        S = q.shape[1]
     nq = S // c
     scale = 1.0 / math.sqrt(D)
     ar = torch.arange(c, device=q.device)
-    outs = []
+    outs, ms, ls = [], [], []
     for qi in range(nq):
         qb = q[:, qi * c:(qi + 1) * c].float()
         q_pos = qi * c + ar
@@ -198,7 +202,99 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int):
             m = m_new
         out = acc / l.clamp_min(1e-30)[..., None]
         outs.append(out.transpose(1, 2))                  # (B,c,H,Dv)
-    return torch.cat(outs, dim=1)[:, :S_real].to(q.dtype)
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1), torch.cat(ms, -1), torch.cat(ls, -1)
+
+
+def flash_attention(q, k, v, *, causal: bool, chunk: int):
+    """Chunked attention.  q: (B,S,H,D); k, v: (B,S,H,D) (kv already
+    repeated to H).  Loops over q-chunks (outer) and kv-chunks (inner,
+    online softmax), as the reference's ``lax.map`` over ``lax.scan``
+    does; differentiated by autograd as it runs."""
+    S = q.shape[1]
+    c = min(chunk, S)
+    pad = -S % c
+    if pad:
+        q, k, v = pad_seq(q, pad), pad_seq(k, pad), pad_seq(v, pad)
+    out, _, _ = _flash_blocks(q, k, v, causal, c, S)
+    return out[:, :S].to(q.dtype)
+
+
+def _flash_bwd(causal: bool, c: int, q, k, v, out, m, l, g):
+    """The reference's ``_flash_bwd``: with ``delta = rowsum(dO * O)``,
+    each (q-chunk, kv-chunk) block's probabilities are recomputed from the
+    saved row max and sum, and dq, dk, dv accumulate in float32 in the
+    reference's order (kv-chunks within a q-chunk, q-chunks in turn).
+    Fully masked causal blocks add exact zeros there and are skipped."""
+    B, S, H, D = q.shape
+    Dv = v.shape[-1]
+    nq = S // c
+    scale = 1.0 / math.sqrt(D)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2)    # (B,H,S)
+    dq = torch.empty((B, S, H, D), device=q.device)
+    dk = torch.zeros((B, S, H, D), device=q.device)
+    dv = torch.zeros((B, S, H, Dv), device=q.device)
+    ar = torch.arange(c, device=q.device)
+    for qi in range(nq):
+        qs = slice(qi * c, (qi + 1) * c)
+        qb, gb = q[:, qs].float(), g[:, qs].float()
+        m_i, l_i, d_i = m[..., qs], l[..., qs], delta[..., qs]
+        q_pos = qi * c + ar
+        dq_acc = torch.zeros((B, c, H, D), device=q.device)
+        for ki in range(qi + 1 if causal else nq):
+            ks = slice(ki * c, (ki + 1) * c)
+            kb, vb = k[:, ks].float(), v[:, ks].float()
+            s_blk = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            if causal:
+                k_pos = ki * c + ar
+                s_blk = torch.where(q_pos[:, None] >= k_pos[None, :],
+                                    s_blk, -1e30)
+            p = torch.exp(s_blk - m_i[..., None]) / \
+                l_i.clamp_min(1e-30)[..., None]                   # (B,H,c,c)
+            dv[:, ks] += torch.einsum("bhqk,bqhd->bkhd", p, gb)
+            dp = torch.einsum("bqhd,bkhd->bhqk", gb, vb)
+            ds = p * (dp - d_i[..., None]) * scale
+            dq_acc += torch.einsum("bhqk,bkhd->bqhd", ds, kb)
+            dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qb)
+        dq[:, qs] = dq_acc
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The reference's ``_flash_core`` (a ``jax.custom_vjp``): the blockwise
+    forward saves only ``(q, k, v, out, m, l)``, never a block of
+    probabilities, and ``_flash_bwd`` recomputes them.  S must be a
+    multiple of the chunk ``c``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, c: int):
+        out, m, l = _flash_blocks(q, k, v, causal, c, q.shape[1])
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.causal, ctx.c = causal, c
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = _flash_bwd(ctx.causal, ctx.c, *ctx.saved_tensors, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_vjp(q, k, v, *, causal: bool, chunk: int):
+    """The reference's padded wrapper around ``_FlashCore``.  A causal
+    sequence is zero-padded to a multiple of the chunk (padded keys come
+    after every real query, so the mask hides them).  A non-causal one
+    that needs padding runs ``flash_attention`` on the padded q, k and v,
+    as the reference does: its padded keys are then not masked."""
+    S = q.shape[1]
+    c = min(chunk, S)
+    pad = -S % c
+    if pad:
+        q, k, v = pad_seq(q, pad), pad_seq(k, pad), pad_seq(v, pad)
+        if not causal:
+            return flash_attention(q, k, v, causal=False, chunk=chunk)[:, :S]
+    return _FlashCore.apply(q, k, v, causal, c)[:, :S]
 
 
 def causal_tree_attention(q, k, v, *, chunk: int):
@@ -273,6 +369,9 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
     k, v = repeat_kv(k, H), repeat_kv(v, H)
     if causal and cfg.causal_tree_attn:
         out = causal_tree_attention(q, k, v, chunk=cfg.attn_chunk)
+    elif cfg.flash_vjp:
+        out = flash_attention_vjp(q, k, v, causal=causal,
+                                  chunk=cfg.attn_chunk)
     else:
         out = flash_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
@@ -353,8 +452,9 @@ _rms = _qk_norm     # the reference's name for the latents' RMS norm
 
 def mla_fwd(p, x, cfg, *, positions, return_kv=False):
     """MLA prefill, the non-absorbed form: per-head keys and values are
-    expanded from the latent and go through ``flash_attention`` with the
-    RoPE part of the key shared by every head.  x: (B,S,d).  With
+    expanded from the latent and go through ``flash_attention`` (or
+    ``flash_attention_vjp`` under ``flash_vjp``) with the RoPE part of the
+    key shared by every head.  x: (B,S,d).  With
     ``return_kv`` also returns the cache rows (c_kv (B,S,kvr), k_rope
     (B,S,dr))."""
     B, S, _ = x.shape
@@ -370,8 +470,8 @@ def mla_fwd(p, x, cfg, *, positions, return_kv=False):
     v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
     q_full = torch.cat([q[..., :dn], q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
-    out = flash_attention(q_full, k_full, v, causal=True,
-                          chunk=cfg.attn_chunk)
+    attend = flash_attention_vjp if cfg.flash_vjp else flash_attention
+    out = attend(q_full, k_full, v, causal=True, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
         return y, (c_kv, k_rope[:, :, 0])

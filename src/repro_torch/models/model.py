@@ -1,15 +1,23 @@
-"""Model facade of the port: the serving steps of ``repro.models.model``
-for every family it ships (dense, MoE and MLA decoders, encoders, Mamba-1
-and zamba2's Mamba-2 hybrid), as an ``nn.Module``.
+"""Model facade of the port: the serving and training steps of
+``repro.models.model`` for every family it ships (dense, MoE and MLA
+decoders, encoders, Mamba-1 and zamba2's Mamba-2 hybrid), as an
+``nn.Module``.
 
 ``build(cfg, device=None)`` returns a ``Model`` whose ``prefill_step(batch)``
 and ``decode_step(caches, token, pos)`` keep the reference's names, inputs
 and outputs, so one test can drive both.  Weights are drawn from an
 explicit ``torch.Generator`` on the model's device, or carried over from
 the reference's parameter pytree with ``params_from_reference``.  Serving
-runs under ``torch.inference_mode()``.  The training side (``ce_loss``,
-``loss_fn``, ``train_step``, MTP heads) is not ported and raises; a
-``Model`` holds no MTP parameters, which only the training loss reads.
+runs under ``torch.inference_mode()``.
+
+``build(..., training=True)`` makes the weights trainable and adds the
+multi-token-prediction head where the config has one (only the loss reads
+it; at deepseek's full width it is one more MoE layer of about 11.5 B
+parameters, so a serving model holds none).  Then ``loss_fn(batch)`` and
+``train_step(opt_state, batch, step)`` run the reference's loss (chunked
+cross-entropy, the MTP term, the MoE aux) and its step (microbatches
+accumulated in float32, AdamW from ``train/optimizer.py``); the weights
+are updated in place.
 """
 from __future__ import annotations
 
@@ -18,14 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.relation import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-
-_TRAINING = ("the training side is not ported: ROADMAP Queue 1 item 10 "
-             "(training)")
+from repro_torch.train import optimizer as OPT
 
 
 def embed(tokens, table):
@@ -49,15 +56,50 @@ def _unemb_t(params, cfg):
     return params["unemb"].T
 
 
-def ce_loss(*args, **kwargs):
-    raise NotImplementedError(_TRAINING)
+def _ce_chunk(hb, unemb_t, tb, mb, vocab_size: int):
+    """Summed masked cross-entropy of one chunk: float32 logits (B,c,V),
+    padded vocabulary rows at -1e30."""
+    logits = torch.einsum("bcd,vd->bcv", hb.float(), unemb_t.float())
+    pad = torch.arange(unemb_t.shape[0], device=hb.device) >= vocab_size
+    logits = torch.where(pad, -1e30, logits)
+    m = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    lab = logits.gather(-1, tb[..., None])[..., 0]
+    return ((lse - lab) * mb).sum()
+
+
+def ce_loss(h, unemb_t, targets, mask, cfg):
+    """h: (B,S,d) final-normed; unemb_t: (V,d) [vocab-major]; targets
+    (B,S).  Returns (sum_loss, sum_mask).  The sequence goes in chunks of
+    ``loss_chunk`` (zero-padded), summed in order as the reference's scan
+    does; under autograd each chunk is checkpointed, so its (B,c,V)
+    logits are recomputed in the backward and the whole (B,S,V) never
+    exists."""
+    B, S, _ = h.shape
+    c = min(cfg.loss_chunk, S)
+    pad = -S % c
+    if pad:
+        h = torch.cat([h, h.new_zeros((B, pad, h.shape[2]))], 1)
+        targets = torch.cat([targets, targets.new_zeros((B, pad))], 1)
+        mask = torch.cat([mask, mask.new_zeros((B, pad))], 1)
+    targets = targets.long()
+    total = torch.zeros((), device=h.device)
+    for i in range(0, S + pad, c):
+        args = (h[:, i:i + c], unemb_t, targets[:, i:i + c],
+                mask[:, i:i + c], cfg.vocab_size)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            total = total + _ce_chunk(*args)
+    return total, mask.sum()
 
 
 class Model(nn.Module):
     """A decoder (or encoder) LM on one device."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 training: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
@@ -66,13 +108,18 @@ class Model(nn.Module):
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{dev}")
         self.cfg = cfg
-        params = T.init_stack(cfg, generator)
+        self.opt_cfg = OPT.OptConfig(grad_compress=cfg.grad_compress)
+        self.for_training = training
+        params = T.init_stack(cfg, generator, mtp=training)
         self.emb = params["emb"]
         if "unemb" in params:
             self.unemb = params["unemb"]
         self.ln_final = params["ln_final"]
         self.layers = params["layers"]
         self.shared = params.get("shared")
+        self.mtp = params.get("mtp")
+        if training:
+            self.requires_grad_(True)
 
     @property
     def device(self) -> torch.device:
@@ -128,12 +175,93 @@ class Model(nn.Module):
         logits, caches = self.decode(caches, token, pos)
         return logits.argmax(-1).to(torch.int32), caches
 
-    # ---------------- not ported ---------------------------------------------
-    def loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    # ---------------- training ------------------------------------------------
+    def loss_fn(self, batch):
+        """(loss, {"ce": ce}) of ``batch`` ({"tokens" or "embeddings",
+        "labels", optional "mask"}): the masked mean cross-entropy, plus
+        0.3 times the MTP head's (predicting the token after the label)
+        where the model holds one, plus the MoE load-balancing aux."""
+        cfg = self.cfg
+        x = self._embed_inputs(batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        h, aux = T.forward_train(self.layers, x, cfg, positions, self.shared)
+        h = L.apply_norm(self.ln_final, h, cfg)
+        top = dict(self.named_parameters(recurse=False))
+        unemb_t = _unemb_t(top, cfg)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        mask = batch.get("mask")
+        mask = (torch.ones(labels.shape, device=self.device) if mask is None
+                else torch.as_tensor(mask, device=self.device))
+        total, denom = ce_loss(h, unemb_t, labels, mask, cfg)
+        ce = total / denom.clamp_min(1.0)
+        loss = ce
+        if cfg.mtp_depth and self.mtp is not None \
+                and cfg.input_mode == "tokens":
+            # multi-token prediction: predict t+2 from [h_t ; emb(label_t)]
+            mp = self.mtp
+            hcat = torch.cat([L.apply_norm(mp.ln_h, h, cfg),
+                              L.apply_norm(mp.ln_e, embed(labels, self.emb),
+                                           cfg)], dim=-1)
+            h2 = torch.einsum("bsd,de->bse", hcat, mp.proj)
+            y = T.attn_block_fwd(mp.layer, h2, cfg, positions, causal=True)
+            y = y[0] if isinstance(y, tuple) else y
+            mask2 = mask.clone()
+            mask2[:, -1] = 0.0
+            t2, d2 = ce_loss(L.apply_norm(self.ln_final, y, cfg), unemb_t,
+                             torch.roll(labels, -1, dims=1), mask2, cfg)
+            loss = loss + 0.3 * t2 / d2.clamp_min(1.0)
+        return loss + aux, {"ce": ce}
 
-    def train_step(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def _grads(self, params, batch):
+        """(loss, metrics, gradients of the loss in the weights' dtypes);
+        a weight the loss does not read gets zeros, as under
+        ``jax.value_and_grad``."""
+        loss, met = self.loss_fn(batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        return (loss.detach(), {k: v.detach() for k, v in met.items()},
+                dict(zip(params, grads)))
+
+    def train_step(self, opt_state, batch, step: int):
+        """One optimizer step on ``batch``; the weights are updated in
+        place.  With ``cfg.microbatches`` M > 1 the batch is cut into M
+        equal parts whose gradients accumulate in float32 and are divided
+        by M (the reported ``ce`` is then the mean loss, as on the
+        reference).  Returns (opt_state, {"loss", "ce", "grad_norm",
+        "lr"})."""
+        if not self.for_training:
+            raise ValueError("a serving Model: build(cfg, ..., "
+                             "training=True) to train")
+        params = dict(self.named_parameters())
+        M = self.cfg.microbatches
+        n_rows = len(batch["labels"])
+        if n_rows % M:
+            raise ValueError(f"a batch of {n_rows} rows does not split into "
+                             f"{M} microbatches")
+        if M == 1:
+            loss, met, grads = self._grads(params, batch)
+        else:
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
+                     for n, p in params.items()}
+            loss = 0.0
+            rows = n_rows // M
+            for i in range(M):
+                mb = {k: v[i * rows:(i + 1) * rows]
+                      for k, v in batch.items()}
+                l, _, g = self._grads(params, mb)
+                for n, gi in g.items():
+                    grads[n] += gi.float()
+                del g
+                loss = loss + l
+            for g in grads.values():
+                g.div_(M)
+            loss = loss / M
+            met = {"ce": loss}
+        _, opt_state, stats = OPT.apply_updates(grads, opt_state, params,
+                                                step, self.opt_cfg)
+        return opt_state, {"loss": loss, **met, **stats}
 
 
 def pad_caches(caches, length: int):
@@ -153,12 +281,14 @@ def pad_caches(caches, length: int):
 
 
 def build(cfg: ModelConfig, device=None,
-          generator: Optional[torch.Generator] = None) -> Model:
+          generator: Optional[torch.Generator] = None,
+          training: bool = False) -> Model:
     """A ``Model`` with random weights on ``device`` (the card unless the
-    caller names one), drawn from ``generator`` (seed 0 by default).  Kept
-    under the reference's name (``repro.models.model.build``), so callers
-    of either package build a model the same way."""
-    return Model(cfg, device, generator)
+    caller names one), drawn from ``generator`` (seed 0 by default); with
+    ``training``, trainable and with its MTP head.  Kept under the
+    reference's name (``repro.models.model.build``), so callers of either
+    package build a model the same way."""
+    return Model(cfg, device, generator, training)
 
 
 # ---------------------------------------------------------------------------
@@ -173,17 +303,17 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def params_from_reference(tree, cfg: ModelConfig) -> dict:
+def params_from_reference(tree, cfg: ModelConfig,
+                          training: bool = False) -> dict:
     """The port's state dict of the reference's parameter pytree (numpy
     arrays): ``emb``, ``unemb``, ``ln_final``, ``stacks`` (deepseek's
     ``moe_dense`` stack, then its ``moe`` stack; one ``ssm`` or ``hybrid``
     stack), each stack with its leading layer axis, and the hybrid's
     ``shared`` block.  Load it with ``Model.load_state_dict``.
 
-    ``mtp`` is left out on purpose: the multi-token-prediction head is read
-    only by the reference's training loss (ROADMAP Queue 1 item 10), never
-    by serving, and at deepseek's full width it is one more MoE layer of
-    about 11.5 B parameters.  The port's serving ``Model`` holds none."""
+    ``mtp`` is carried only with ``training``, for a model built for
+    training: the multi-token-prediction head is read only by the loss,
+    and a serving ``Model`` holds none."""
     sd = {"emb": _tensor(tree["emb"])}
     if "unemb" in tree:
         sd["unemb"] = _tensor(tree["unemb"])
@@ -198,5 +328,13 @@ def params_from_reference(tree, cfg: ModelConfig) -> dict:
                 a = np.asarray(a)
                 for j in range(hi - lo):
                     sd[f"layers.{lo + j}.{part}.{name}"] = _tensor(a[j])
+    if training and "mtp" in tree:
+        mtp = tree["mtp"]
+        sd["mtp.proj"] = _tensor(mtp["proj"])
+        for norm in ("ln_h", "ln_e"):
+            for k, a in mtp[norm].items():
+                sd[f"mtp.{norm}.{k}"] = _tensor(a)
+        for part, leaves in mtp["layer"].items():
+            for name, a in leaves.items():
+                sd[f"mtp.layer.{part}.{name}"] = _tensor(a)
     return sd
-

@@ -118,9 +118,9 @@ def moe_fwd(p, x, cfg):
     C = capacity(T, cfg)
     kept, slot = assign_slots(top_e, E, C)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
-    # rows past capacity all land on the trash row, which is dropped
-    buf = x.new_zeros((E * C + 1, d))
-    buf[slot] = xt[flat_t]
+    # rows past capacity all land on the trash row, which is dropped;
+    # out of place, so that autograd can take the scatter
+    buf = x.new_zeros((E * C + 1, d)).index_put((slot,), xt[flat_t])
     out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"],
                       buf[:E * C].view(E, C, d)).reshape(E * C, d)
     contrib = torch.where(kept[:, None], out[slot.clamp(max=E * C - 1)], 0.0)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import normal, param, torch_dtype
+from repro_torch.models.layers import normal, pad_seq, param, torch_dtype
 
 # Mamba-1's prefill scans at most this many float32 elements of shape
 # (B, S, channels, N) at a time (1 GiB each): channels are independent until
@@ -101,7 +101,51 @@ def conv1d_step(x, w, b, state):
 # ---------------------------------------------------------------------------
 def chunked_diag_scan(a, u, chunk: int, h0=None):
     """Every h_t, (B,S,C,N); ``a`` and ``u`` are left as they are."""
-    return _scan_owned(a.clone(), u.clone(), chunk, h0)
+    return _diag_scan(a.clone(), u.clone(), chunk, h0)
+
+
+def _diag_scan(a, u, chunk: int, h0):
+    """``chunked_diag_scan`` on buffers it owns.  Where autograd records
+    (grad mode on and an input that needs a gradient), the scan is
+    ``_DiagScan``, whose backward is a scan of its own; otherwise it runs
+    in place (``_scan_owned``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, u, h0)):
+        return _DiagScan.apply(a, u, chunk, h0)
+    return _scan_owned(a, u, chunk, h0)
+
+
+class _DiagScan(torch.autograd.Function):
+    """h_t = a_t h_{t-1} + u_t under autograd.  The forward is
+    ``_scan_owned`` on copies and saves ``a``, the states and ``h0``.  The
+    backward is the adjoint recurrence in reverse time (``_adjoint``);
+    then du_t = g_t, da_t = g_t h_{t-1} and dh0 = a_0 g_0."""
+
+    @staticmethod
+    def forward(ctx, a, u, chunk: int, h0):
+        h = _scan_owned(a.clone(), u.clone(), chunk, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.chunk = chunk
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        a, h, h0 = ctx.saved_tensors
+        g = _adjoint(a, gh, ctx.chunk)
+        h_prev = torch.cat([h.new_zeros(h[:, :1].shape) if h0 is None
+                            else h0[:, None], h[:, :-1]], dim=1)
+        da = g * h_prev
+        dh0 = None if h0 is None else a[:, 0] * g[:, 0]
+        return da, g, None, dh0
+
+
+def _adjoint(a, gh, chunk):
+    """g_t = dL/dh_t + a_{t+1} g_{t+1}, in reverse time: the forward's
+    chunked doubling scan run on the flipped inputs, so it keeps the
+    forward's memory bound."""
+    a_next = torch.cat([a[:, 1:], a.new_zeros(a[:, :1].shape)], dim=1)
+    return _scan_owned(a_next.flip(1), gh.flip(1).contiguous(), chunk,
+                       None).flip(1)
 
 
 def _scan_owned(a, u, chunk, h0):
@@ -172,8 +216,8 @@ def mamba1_fwd(p, x, cfg, state=None):
     for sl in _channel_slices(B, S, di, N, SCAN_SLICE_ELEMS):
         a = torch.exp(dt[..., sl, None] * A[sl])          # (B,S,c,N)
         u = dt[..., sl, None] * Bf * xf[..., sl, None]    # (B,S,c,N)
-        h = _scan_owned(a, u, cfg.ssm_chunk,
-                        None if h0 is None else h0[:, sl])
+        h0_sl = None if h0 is None else h0[:, sl]
+        h = _diag_scan(a, u, cfg.ssm_chunk, h0_sl)
         del a, u
         # y = einsum("bscn,bsn->bsc", h, C) as a product and a sum over N:
         # a matmul's blocking (so its rounding) would follow the slice
@@ -226,11 +270,6 @@ def _segsum(log_a):
     return torch.where(ar[:, None] >= ar[None, :], diff, -math.inf)
 
 
-def _pad_seq(x, pad):
-    """x zero-padded by ``pad`` positions along axis 1."""
-    return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], dim=1)
-
-
 def ssd_chunked(xh, log_a, Bm, Cm, chunk: int, h0=None):
     """SSD scan.  xh: (B,S,nh,hd); log_a: (B,S,nh); Bm, Cm: (B,S,g,N).
     Returns y (B,S,nh,hd) in xh's dtype and the final state (B,nh,hd,N)
@@ -246,7 +285,7 @@ def ssd_chunked(xh, log_a, Bm, Cm, chunk: int, h0=None):
     S_real = S
     pad = -S % c
     if pad:
-        xh, log_a, Bm, Cm = (_pad_seq(t, pad) for t in (xh, log_a, Bm, Cm))
+        xh, log_a, Bm, Cm = (pad_seq(t, pad) for t in (xh, log_a, Bm, Cm))
         S = S + pad
     nc = S // c
     xc = xh.reshape(B, nc, c, nh, hd)
@@ -274,10 +313,11 @@ def ssd_chunked(xh, log_a, Bm, Cm, chunk: int, h0=None):
     A_chunk = torch.exp(total[:, :, 0])                    # (B,nc,nh)
     h = (xh.new_zeros((B, nh, hd, N), dtype=torch.float32) if h0 is None
          else h0.float())
-    h_ins = torch.empty_like(Bx)
+    h_ins = []
     for z in range(nc):
-        h_ins[:, z] = h
+        h_ins.append(h)
         h = A_chunk[:, z, :, None, None] * h + Bx[:, z]
+    h_ins = torch.stack(h_ins, dim=1)                      # (B,nc,nh,hd,N)
 
     # --- inter-chunk contribution to outputs ---
     # The reference's subscripts (src/repro/models/ssm.py:254) label h_ins

@@ -12,11 +12,21 @@ shape (L, B, S, KV, hd) for GQA, ``{"c_kv": (L, B, S, kvr), "k_rope":
 (L, B, S, dr)}`` for MLA, ``{"ssm": (conv, h)}`` for Mamba stacks, and
 for ``hybrid`` also the shared block's ``{"k", "v"}`` of shape
 (n_slots, B, S, KV, hd), one slot per application.
+
+``forward_train`` is the training forward of every family; each layer's
+body runs under ``_maybe_remat`` (``cfg.remat``: ``torch.utils.checkpoint``
+of the whole body for ``"full"``, or recomputing all but the matmuls'
+outputs for ``"dots"``).  The multi-token-prediction head (``init_mtp``) is
+built only for training: only the loss reads it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -135,10 +145,29 @@ def stack_groups(cfg):
     return groups
 
 
-def init_stack(cfg, generator) -> dict:
+class MTPHead(nn.Module):
+    """deepseek's multi-token-prediction head: the final-normed hidden
+    state and the next token's embedding, each normed (``ln_h``,
+    ``ln_e``), concatenated and projected (``proj`` (2d, d)), then one more
+    layer (``layer``: MoE in a MoE model, else dense)."""
+
+    def __init__(self, cfg, generator):
+        super().__init__()
+        dt, dev = L.torch_dtype(cfg.dtype), generator.device
+        self.proj = L.param(L.normal((2 * cfg.d_model, cfg.d_model),
+                                     generator, dt))
+        self.ln_h = L.init_norm(cfg, dev)
+        self.ln_e = L.init_norm(cfg, dev)
+        self.layer = init_layer(cfg, generator,
+                                "moe" if cfg.family == "moe" else "dense")
+
+
+def init_stack(cfg, generator, mtp: bool = False) -> dict:
     """Random parameters on the generator's device: the embedding (vocab
     padded to a multiple of 256, Megatron-style), the unembedding unless
-    tied, the final norm and the layers."""
+    tied, the final norm and the layers; with ``mtp`` and a config that
+    has ``mtp_depth``, also the MTP head, drawn after every other weight
+    so that those are the same with or without it."""
     dt, dev = L.torch_dtype(cfg.dtype), generator.device
     V = L.pad_to(cfg.vocab_size, 256)
     params = {"emb": L.param(L.normal((V, cfg.d_model), generator, dt))}
@@ -150,7 +179,67 @@ def init_stack(cfg, generator) -> dict:
         for kind, lo, hi in stack_groups(cfg) for _ in range(lo, hi))
     if cfg.family == "hybrid":
         params["shared"] = init_shared_block(cfg, generator)
+    if mtp and cfg.mtp_depth:
+        params["mtp"] = MTPHead(cfg, generator)
     return params
+
+
+# ---------------------------------------------------------------------------
+# training / encoder forward
+# ---------------------------------------------------------------------------
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dimensions, the ones the
+    reference's "dots" policy (``dots_with_no_batch_dims_saveable``)
+    keeps: ``mm`` / ``addmm``, and ``bmm`` over a batch of one, which is
+    how ``torch.einsum`` runs a projection such as "bsd,de->bse"."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(f, cfg):
+    """``f`` as the reference's ``jax.checkpoint`` of a layer body would
+    run it: as it is (``"none"``), saving only its inputs and recomputing
+    the rest in the backward (``"full"``), or saving the outputs of its
+    matmuls without batch dimensions and recomputing the rest
+    (``"dots"``)."""
+    if cfg.remat == "none":
+        return f
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(f, *args, use_reentrant=False, **kw)
+
+
+def forward_train(layers, x, cfg, positions, shared=None):
+    """x: hidden after embedding (B,S,d).  Returns (hidden, aux): aux the
+    sum of the MoE layers' load-balancing losses (0.0 without MoE).  The
+    hybrid's shared block runs after each layer of ``hybrid_attn_slots``
+    (a branch on the layer index where the reference has ``lax.cond``);
+    autograd adds its gradient over every use."""
+    causal = not cfg.is_encoder
+    aux_total = 0.0
+    if cfg.family in ("ssm", "hybrid"):
+        fwd = SSM.mamba1_fwd if cfg.family == "ssm" else SSM.mamba2_fwd
+        slots = _slot_of(cfg)
+        for i, lp in enumerate(layers):
+            def body(h, lp=lp, attend=i in slots):
+                h = h + fwd(lp["ssm"], L.apply_norm(lp["ln"], h, cfg), cfg)
+                if attend:
+                    h, _ = attn_block_fwd(shared, h, cfg, positions,
+                                          causal=causal)
+                return h
+            x = _maybe_remat(body, cfg)(x)
+        return x, aux_total
+    for lp in layers:
+        def body(h, lp=lp):
+            out = attn_block_fwd(lp, h, cfg, positions, causal=causal)
+            return (out, 0.0) if cfg.parallel_block else out
+        x, da = _maybe_remat(body, cfg)(x)
+        aux_total = aux_total + da
+    return x, aux_total
 
 
 # ---------------------------------------------------------------------------

@@ -183,22 +183,28 @@ def test_mla_decode_attention(where, dtype, mcx):
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_params_from_reference_loads_every_leaf_but_mtp(arch, mcx):
     """Every leaf of the reference's tree, each stacked layer its own
-    entry, except the MTP head's; ``load_state_dict`` (strict) takes the
-    result, and the model then holds the reference's arrays."""
+    entry, the MTP head's included for a model built for training and
+    left out for a serving model, which holds none; ``load_state_dict``
+    (strict) takes either result, and the model then holds the
+    reference's arrays."""
     cfg = PB.get_smoke_config(arch)
     tree = RM.build(ref_cfg(cfg), mcx).init_params(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, tree)
     assert ("mtp" in tree) == bool(cfg.mtp_depth)
-    want = sum(a.shape[0] if path[0].key == "stacks" else 1
-               for path, a in jax.tree_util.tree_flatten_with_path(tree)[0]
-               if path[0].key != "mtp")
-    sd = PM.params_from_reference(tree, cfg)
-    assert len(sd) == want
-    mdl = PM.build(cfg, "cpu")
-    mdl.load_state_dict(sd, strict=True)
-    mine = mdl.state_dict()
-    assert mine.keys() == sd.keys()
-    assert all(torch.equal(mine[k], v) for k, v in sd.items())
+    for training in (False, True):
+        want = sum(a.shape[0] if path[0].key == "stacks" else 1
+                   for path, a in jax.tree_util.tree_flatten_with_path(
+                       tree)[0]
+                   if training or path[0].key != "mtp")
+        sd = PM.params_from_reference(tree, cfg, training=training)
+        assert len(sd) == want
+        assert any(k.startswith("mtp.") for k in sd) == \
+            (training and bool(cfg.mtp_depth))
+        mdl = PM.build(cfg, "cpu", training=training)
+        mdl.load_state_dict(sd, strict=True)
+        mine = mdl.state_dict()
+        assert mine.keys() == sd.keys()
+        assert all(torch.equal(mine[k], v) for k, v in sd.items())
     kinds = [k for k, lo, hi in RT.stack_groups(ref_cfg(cfg))
              for _ in range(lo, hi)]
     assert ["moe" in mdl.layers[i] for i in range(cfg.num_layers)] \

@@ -413,11 +413,13 @@ def test_reference_ssd_is_exact_in_one_chunk_only(chunk):
 
 
 def test_training_and_dry_run_raise():
+    """The dry run raises, naming the analysis item.  Training is ported
+    (``tests/test_torch_train*.py``): a serving model's ``train_step``
+    refuses, since it holds frozen weights and no MTP head."""
     mdl = PM.build(PB.get_smoke_config("stablelm_12b"), "cpu")
-    training = "ROADMAP Queue 1 item 10 \\(training\\)"
-    for fn in (mdl.loss_fn, mdl.train_step, PM.ce_loss, train.main):
-        with pytest.raises(NotImplementedError, match=training):
-            fn()
+    with pytest.raises(ValueError, match="training=True"):
+        mdl.train_step({}, {}, 0)
+    assert callable(train.main)
     with pytest.raises(NotImplementedError,
                        match="Queue 1: analysis \\+ benchmarks"):
         dryrun.main()

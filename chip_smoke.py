@@ -24,7 +24,8 @@ Phases, each fatal on failure:
 5. time each kernel at the largest shape the main path gave it (CUDA
    events around back-to-back calls, and the kernels' device time from a
    torch.profiler trace), beside its plain version, a PyTorch library call
-   where one computes the same function, and its bound; and break a whole
+   where one computes the same function, and its bound (the bytes the cost
+   walk counts for the call, over the card's memory rate); and break a whole
    2^22 int32 sort down into its tile sort and its merge at every width,
    beside ``torch.sort(keys, stable=True)``; and time the probe over a
    grid of shapes (``PROBE_GRID``), haystacks past L2 included;
@@ -44,14 +45,17 @@ Phases, each fatal on failure:
    ``crash:round=2`` (SIGKILL) and resumed to phase 3's result; at
    ``n_univ=200``, ``sigterm:round=2`` (exit 143, then resume), and
    ``ckpt_corrupt:tag=2`` with ``crash:round=2`` (the resume falls back to
-   round 1); each save's time and bytes are printed.
+   round 1); the three drills run side by side; each save's time and
+   bytes are printed.
 9. the fused executor (``REPRO_FUSED=1``) on the card: LUBM-L
    ``n_univ=2000``, wide TC at 1,000,000 chains and the deep chain of
    ``benchmarks/bench_fused.py`` (``tc_facts(192, 16)``, its generator
    copied here), each cold and then warm on a fresh ``EngineKB``.  Every
    run is held against the fused run on the CPU from the same capacity
    memo (rows, MatStats with ``extra``, SORT_STATS, count_pulls,
-   fused_pulls, fused_retries) and against the two-phase run on the card
+   fused_pulls, fused_retries; the CPU's cold runs of LUBM-L and wide TC
+   come from a child started before phase 7, which runs them beside the
+   card's work) and against the two-phase run on the card
    (rows, rounds, triggers, derived); it must be fused and not spilled,
    the warm run must retry nothing, and the deep chain must give 128
    rounds, 39,546 triggers, 36,314 derived and 21 fused pulls warm.  A
@@ -167,7 +171,8 @@ Phases, each fatal on failure:
    2048 (2 microbatches, remat full), 4 steps: finite losses and gradient
    norms, the step-0 loss within 0.2 of ln(V) + d_model 0.02^2 / 2 (what
    random weights give), step ms, tokens/s, peak, one profiled step and 6
-   N tokens FLOP/s against the bf16 peak.  2-layer float32 copies at full
+   N tokens FLOP/s (N active) against the bf16 peak, and one more step
+   under the cost walk.  2-layer float32 copies at full
    width, card against CPU: one ``train_step`` of zamba2 (shared block
    after every 2nd layer, 2 x 1040), ``stablelm_12b`` with ``flash_vjp``
    (2 x 1040; loss and gradients, also against the plain backward) and
@@ -175,18 +180,32 @@ Phases, each fatal on failure:
    scan's backward, a fault planted in its adjoint).  The CPU's sides run
    on a background thread.  It adds the ``train`` line
    and a ``launches_train`` key to each kernel row.
+16. the analysis layer (``repro_torch.analysis``): ``engine_op_roofline``
+   at phase 5's largest shapes on the card and on the CPU, every count
+   equal; phase 5's bounds, now the counted bytes of one call over
+   ``roofline.HBM_BW``, equal to PERF.md's kernel table
+   (``PHASE5_BOUND_MS``); ``lower_fused_programs`` on phase 9's warm
+   LUBM-L fused KBs, card and CPU from the same memo, counts equal and
+   the memo untouched, each program's memory term beside the profiled
+   warm run's busy time; the cost walk of one more zamba2 train step
+   (phase 15, 8 x 2048) and of one ``stablelm_12b`` decode step (phase
+   12), counted FLOPs, bytes and memory beside the measured step, its
+   busy time and its peak; phase 15's model FLOP/s from
+   ``roofline.model_flops_estimate`` (active parameters) over
+   ``roofline.PEAK_FLOPS``.  It adds the ``analysis`` line.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"recovery": [...]}`` line, a ``{"fused": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
 ``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
-``{"serve_ssm": {...}}`` line, a ``{"train": {...}}`` line, a
-``{"kernels": [...]}`` line,
+``{"serve_ssm": {...}}`` line, a ``{"train": {...}}`` line, an
+``{"analysis": {...}}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
-otherwise.  ``chip_smoke.py --child ...`` is phase 8's child process.
+otherwise.  ``chip_smoke.py --child ...`` is phase 8's child process,
+``chip_smoke.py --fused-cpu DIR`` phase 9's CPU cold runs.
 """
 from __future__ import annotations
 
@@ -210,7 +229,6 @@ import torch  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 LUBM_UNIV = 2000
 TC_CHAINS = 1_000_000
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 DTYPES = (torch.int16, torch.int32, torch.int64)
 
 KERNELS = {
@@ -670,9 +688,8 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
             kern = lambda: fn(keys, vals, block)  # noqa: E731
             base = lambda: plain(keys, vals, block)  # noqa: E731
             lib = lambda: torch.sort(keys.view(-1, block), dim=1)  # noqa: E731
-            n = keys.numel()
-            nbytes = 2 * n * (keys.element_size() + 4)
-            shape = {"n": n, "dtype": str(keys.dtype), "block": block}
+            shape = {"n": keys.numel(), "dtype": str(keys.dtype),
+                     "block": block}
         elif name == "unique_mask":
             (data,) = args
             data = data.clone()
@@ -680,7 +697,6 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
             base = lambda: ref.unique_mask_ref(data)  # noqa: E731
             lib = None
             n, c = data.shape
-            nbytes = data.numel() * data.element_size() + 4 * n
             shape = {"n": n, "cols": c, "dtype": str(data.dtype)}
         else:
             q, hay = (a.clone() for a in args)
@@ -690,9 +706,8 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
             def lib():
                 idx = torch.searchsorted(hay, q).clamp_(max=hay.numel() - 1)
                 return hay[idx] == q
-            n, h = q.numel(), hay.numel()
-            nbytes = probe_bytes(q, hay)
-            shape = {"n": n, "hay": h, "dtype": str(q.dtype)}
+            shape = {"n": q.numel(), "hay": hay.numel(),
+                     "dtype": str(q.dtype)}
         got, want = kern(), base()
         pairs = list(zip(got, want)) if isinstance(got, tuple) \
             else [(got, want)]
@@ -700,6 +715,7 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
         err = max_abs_err(pairs)
         if mism:
             fail(f"{name} disagrees with its plain version at {shape}")
+        bound = counted(kern)
         ms = time_ms(kern)
         dev_ms = device_ms(kern)
         plain_ms = time_ms(base)
@@ -709,20 +725,24 @@ def kernel_rows(largest, launches, BS, UM, HP, ref):
             "replaces": replaces, "launches": launches[name],
             "mismatches": mism, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms, "shape": shape})
+            "bound_ms": bound["bound_ms"], "bound_by": "bytes",
+            "bytes": bound["bytes"], "library_ms": library_ms,
+            "shape": shape})
     return rows
 
 
-def probe_bytes(q, hay) -> int:
-    """Bytes the membership probe must move on these inputs: the queries
-    read and the flags written once, and of the haystack the 32-byte
-    sectors that hold the queries' lower bounds (an answer rests on
-    the key there; no search needs to read the rest)."""
-    sector = 32 // hay.element_size()
-    pos = torch.searchsorted(hay, q).clamp_(max=hay.numel() - 1)
-    return (q.numel() * (q.element_size() + 4)
-            + torch.unique(pos // sector).numel() * 32)
+def counted(fn) -> dict:
+    """One call of ``fn`` under the cost walk (``repro_torch.analysis``):
+    the bytes its kernels must move by their formulas (each input read
+    once, each output written once; the probe's haystack by the 32-byte
+    sectors its answers rest on), and that over the card's memory rate
+    (``roofline.HBM_BW``)."""
+    from repro_torch.analysis import cost
+    from repro_torch.analysis import roofline as RL
+    with cost.Recorder() as r:
+        fn()
+    return {"bytes": r.cost.bytes, "flops": r.cost.flops,
+            "bound_ms": r.cost.bytes / RL.HBM_BW * 1e3}
 
 
 # (queries, haystack keys, key type) of the probe's shape grid
@@ -734,7 +754,7 @@ PROBE_GRID = [(n, h, dt) for dt in (torch.int32, torch.int64)
 def probe_grid(HP, ref, rng) -> dict:
     """The probe over ``PROBE_GRID``: random keys in [0, 4H), so about a
     fifth of the queries are found; mismatches against the plain version,
-    device time, time per call, and the byte bound (``probe_bytes``).  At
+    device time, time per call, and the byte bound (``counted``).  At
     2^24 keys the haystack (64 MB at int32, 128 MB at int64) is larger
     than the 50 MB L2."""
     out = {}
@@ -745,7 +765,7 @@ def probe_grid(HP, ref, rng) -> dict:
         out[f"{n}/{h}/{str(dt).split('.')[-1]}"] = {
             "mismatches": mismatches(kern(), ref.probe_sorted_ref(q, hay)),
             "device_ms": device_ms(kern), "ms": time_ms(kern),
-            "bound_ms": probe_bytes(q, hay) / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": counted(kern)["bound_ms"]}
         del hay, q
     return out
 
@@ -755,7 +775,7 @@ def sort_breakdown(BS, KO, rng) -> dict:
     time of its tile sort and of its merge at each width, of the whole sort,
     and of ``torch.sort(keys, stable=True)`` as a yardstick the port never
     calls.  The bound counts one read and one write of every key and
-    payload per kernel call."""
+    payload per kernel call (``counted``)."""
     n, tile = 1 << 22, 1024
     keys = rand_keys(rng, n, torch.int32, 0, 1 << 30)
     pos = torch.arange(n, dtype=torch.int32, device="cuda")
@@ -771,11 +791,11 @@ def sort_breakdown(BS, KO, rng) -> dict:
     lib = lambda: torch.sort(keys, stable=True)  # noqa: E731
     calls = 1 + len(merge_ms)
     return {"n": n, "tile": tile, "kernel_calls": calls,
+            "bound_ms": counted(full)["bound_ms"],
             "tile_device_ms": device_ms(
                 lambda: BS.bitonic_sort_tiles(keys, pos, tile)),
             "merge_device_ms": merge_ms,
             "sort_ms": time_ms(full), "sort_device_ms": device_ms(full),
-            "bound_ms": calls * 2 * n * 8 / HBM_BYTES_PER_S * 1e3,
             "torch_sort_ms": time_ms(lib), "torch_sort_device_ms":
             device_ms(lib)}
 
@@ -1012,8 +1032,11 @@ def run_child(ckpt_dir, n_univ, fault):
 def recovery_drills(tmp, lubm_rows, lubm_stats):
     """Phase 8: (label, n_univ, fault, expected exit code, expected
     resumed round).  Each faulted run is resumed by a fresh child, which
-    must reach the uninterrupted run's rows and counters."""
+    must reach the uninterrupted run's rows and counters.  The drills are
+    independent (a directory each) and run side by side, one thread each
+    driving its two children in turn."""
     import signal
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch import EngineKB, materialize
     from repro_torch.data.kb_sources import LUBM_L, lubm_facts
     from repro_torch.engine import recovery
@@ -1027,8 +1050,8 @@ def recovery_drills(tmp, lubm_rows, lubm_stats):
               ("sigterm", DRILL_UNIV, "sigterm:round=2", 143, 3),
               ("ckpt_corrupt", DRILL_UNIV, "ckpt_corrupt:tag=2,crash:round=2",
                -signal.SIGKILL, 1)]
-    out = []
-    for label, n_univ, fault, rc_want, resumed_want in drills:
+
+    def drill(label, n_univ, fault, rc_want, resumed_want):
         d = os.path.join(tmp, label)
         os.makedirs(d)
         rc, lines, _, err = run_child(d, n_univ, fault)
@@ -1049,12 +1072,16 @@ def recovery_drills(tmp, lubm_rows, lubm_stats):
         if rows.keys() != want_rows.keys() or any(
                 not np.array_equal(rows[p], want_rows[p]) for p in rows):
             fail(f"{label}: the resumed facts differ")
-        rec = {"drill": label, "n_univ": n_univ, "fault": fault,
-               "exit": rc, "saves": [x for x in lines if "save" in x],
-               "resume": res,
-               "resume_saves": [x for x in lines2 if "save" in x]}
+        return {"drill": label, "n_univ": n_univ, "fault": fault,
+                "exit": rc, "saves": [x for x in lines if "save" in x],
+                "resume": res,
+                "resume_saves": [x for x in lines2 if "save" in x]}
+
+    with ThreadPoolExecutor(len(drills)) as pool:
+        jobs = [pool.submit(drill, *x) for x in drills]
+        out = [j.result() for j in jobs]
+    for rec in out:
         log(f"[recovery] {json.dumps(rec)}")
-        out.append(rec)
     return out
 
 
@@ -1150,6 +1177,7 @@ def graph_loop_row(calls, launches):
     call (staging copies and the launch, CUDA events), the host loop's time,
     and the bound: the constants read and the state read and written once
     each, over the memory rate."""
+    from repro_torch.analysis import roofline as RL
     from repro_torch.engine import fused
     best = None
     for loop, consts, state, enter in calls:
@@ -1179,18 +1207,96 @@ def graph_loop_row(calls, launches):
             "ms": time_ms(lambda: loop(consts, state, True)),
             "plain_ms": time_ms(lambda: plain(consts, state), reps=3,
                                 runs=3),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": nbytes / RL.HBM_BW * 1e3, "bound_by": "bytes",
             "library_ms": None,
             "shape": {"iterations": iters, "state": [list(x.shape)
                                                      for x in state]}}
 
 
-def fused_workload(name, make_kb, checks):
+def fused_workloads(facts):
+    """Phase 9's LUBM-L and wide TC: (name, make_kb(device))."""
+    from repro_torch import EngineKB
+    from repro_torch.data.kb_sources import LUBM_L, TC, tc_wide_chunks
+    return [("lubm_l", lambda d: EngineKB(LUBM_L, facts, device=d)),
+            ("tc_wide", lambda d: EngineKB.from_stream(
+                TC, tc_wide_chunks(TC_CHAINS), device=d))]
+
+
+def fused_cpu_cold(out_dir: str) -> int:
+    """``chip_smoke.py --fused-cpu DIR``: phase 9's CPU cold fused runs of
+    LUBM-L and wide TC (about 170 s), each from an empty capacity memo as
+    ``fused_workload`` would make them, in a child that runs beside the
+    card's work of phases 7-9.  For each workload: its rows
+    (``<name>.npz``), the memo it converged to (``<name>.memo``, pickled)
+    and, written last, its counters and wall (``<name>.json``)."""
+    import pickle
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.data.kb_sources import lubm_facts
+    from repro_torch.engine import fused, plan
+    os.environ["REPRO_FUSED"] = "1"
+    torch.set_num_threads(CPU_JOB_THREADS)
+    for name, make_kb in fused_workloads(lubm_facts(n_univ=LUBM_UNIV)):
+        plan._CAP_MEMO.clear()
+        fused.clear_programs()
+        kb, rec, card = fused_run(make_kb, "cpu")
+        path = os.path.join(out_dir, name)
+        np.savez(path + ".npz", **rows_by_pred(kb))
+        with open(path + ".memo", "wb") as f:
+            pickle.dump(dict(plan._CAP_MEMO), f)
+        with open(path + ".part", "w") as f:
+            json.dump({"rec": rec, "wall_ms": card["wall_ms"]}, f)
+        os.replace(path + ".part", path + ".json")
+        del kb
+    return 0
+
+
+def start_fused_cpu_cold(out_dir: str):
+    """Start ``fused_cpu_cold`` in a child process, killed at exit if it
+    still runs."""
+    import atexit
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    with open(os.path.join(out_dir, "stderr"), "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--fused-cpu", out_dir], env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def fused_cpu_cold_run(proc, out_dir: str, name: str):
+    """The child's cold run of ``name``, once written: (counters, wall ms,
+    rows, the memo it converged to)."""
+    import pickle
+    path = os.path.join(out_dir, name)
+    while not os.path.exists(path + ".json"):
+        if proc.poll() is not None and not os.path.exists(path + ".json"):
+            with open(os.path.join(out_dir, "stderr")) as f:
+                fail(f"phase 9's CPU cold runs stopped ({proc.returncode}) "
+                     f"before {name}: {f.read()[-3000:]}")
+        time.sleep(0.2)
+    with open(path + ".json") as f:
+        got = json.load(f)
+    with np.load(path + ".npz") as z:
+        rows = {k: z[k] for k in z.files}
+    with open(path + ".memo", "rb") as f:
+        memo = pickle.load(f)
+    return got["rec"], got["wall_ms"], rows, memo
+
+
+def fused_workload(name, make_kb, checks, cpu_cold=None):
     """Phase 9 for one workload: two-phase on the card, fused cold and warm
     on the card and on the CPU from the same capacity memo, a profiled
-    third run.  Returns (record, summed card launches, device loops, and
-    the KBs: warm fused on the card and on the CPU, two-phase on the
-    card)."""
+    third run.  ``cpu_cold``, where given, returns the CPU's cold run as
+    ``fused_cpu_cold_run`` does; the CPU's warm run then starts from the
+    memo that run converged to.  Returns (record, summed card launches,
+    device loops, and the KBs: warm fused on the card and on the CPU,
+    two-phase on the card)."""
     from repro_torch import materialize
     from repro_torch.engine import fused, plan
     os.environ["REPRO_FUSED"] = "0"
@@ -1201,7 +1307,13 @@ def fused_workload(name, make_kb, checks):
     runs = {}
     for device in ("cuda", "cpu"):
         plan._CAP_MEMO.clear()
-        runs[device] = [fused_run(make_kb, device) for _ in range(2)]
+        if device == "cpu" and cpu_cold is not None:
+            rec, wall_ms, rows, memo = cpu_cold()
+            plan._CAP_MEMO.update(memo)
+            runs["cpu"] = [(rows, rec, {"wall_ms": wall_ms}),
+                           fused_run(make_kb, "cpu")]
+        else:
+            runs[device] = [fused_run(make_kb, device) for _ in range(2)]
         log(f"[fused] {name} {device}: {[r[1:] for r in runs[device]]}")
     launches = {k: 0 for k in KERNELS}
     loops = 0
@@ -1211,7 +1323,8 @@ def fused_workload(name, make_kb, checks):
         if rg["extra"] != {"fused": True}:
             fail(f"{name}: not fused, or spilled: {rg['extra']}")
         rows = rows_by_pred(kb_g)
-        if not same_rows(rows, rows_by_pred(kb_c)):
+        if not same_rows(rows, kb_c if isinstance(kb_c, dict)
+                         else rows_by_pred(kb_c)):
             fail(f"{name} fused: rows differ between card and cpu")
         if not same_rows(rows, rows_t) or [rg[k] for k in (
                 "rounds", "triggers", "derived")] != [two[k] for k in (
@@ -2014,14 +2127,15 @@ def kb_lm_path(name, make_cfg, facts, lubm_nfacts, lubm_stats):
     return rec, launches, tokens
 
 
-def full_width(name, cfg, shape, dropless=None):
+def full_width(name, cfg, shape, dropless=None, walk=False):
     """``cfg`` in bfloat16 on the card, random weights from seed 0: a cold
     prefill of ``shape``'s batch x prompt, then a warm one and ``gen``
     greedy tokens on padded caches, timed; the first decode step against
     a re-prefill (``decode_vs_reprefill``); one more decode step
     profiled; with ``dropless``, a MoE model's decode against a
     re-prefill where no expert overflows (``dropless_vs_reprefill``); the
-    peak memory.  Returns the record."""
+    peak memory.  With ``walk``, the profiled step once more under the cost
+    walk (``decode_step_count``, for phase 16).  Returns the record."""
     from repro_torch.models.model import build
     B, S, gen = shape["batch"], shape["prompt"], shape["gen"]
     torch.cuda.reset_peak_memory_stats()
@@ -2039,9 +2153,17 @@ def full_width(name, cfg, shape, dropless=None):
     run = serve_run(mdl, tokens, gen, keep=(0, 1))
     again = decode_vs_reprefill(mdl, tokens, run)
     last = run["tokens"][:, -1].cuda()
+    caches = run.pop("caches")
     prof = profile_run(f"{name} decode step", lambda: mdl.decode(
-        run.pop("caches"), last, S + gen - 1))
+        caches, last, S + gen - 1))
     extra = {}
+    if walk:
+        params = dict(mdl.named_parameters())
+        extra["decode_step_count"] = walk_step(
+            lambda: mdl.decode_step(caches, last, S + gen - 1),
+            (params, caches, last))
+        del params
+    del caches
     if dropless:
         extra["dropless_vs_reprefill"] = dropless_vs_reprefill(mdl, dropless)
     rec = {"config": {k: getattr(cfg, k) for k in CONFIG_KEYS},
@@ -2147,7 +2269,7 @@ def serve_phase(facts, lubm_nfacts, lubm_stats):
 
     # (b) stablelm_12b at full width and depth
     cfg = get_config("stablelm_12b")
-    full = full_width("stablelm_12b", cfg, FULL)
+    full = full_width("stablelm_12b", cfg, FULL, walk=True)
     again = full["decode_vs_reprefill"]
     if not (full["finite"] and again["rms_rel_err"] <= BF16_REL
             and again["kv_rms_rel_err"] <= BF16_REL
@@ -2541,7 +2663,6 @@ ZERO_FLOOR = 1e-6       # / (ZERO_FLOOR x the largest such rms) where the
                         # rounding)
 F32_UPDATE_RMS = 1e-2   # each weight after the steps: rms(card - CPU) /
                         # rms(CPU's update), as the same fraction
-BF16_PEAK_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
 INIT_STD = 0.02            # the std every weight matrix is drawn with
 LN_VOCAB_TOL = 0.2         # zamba2's step-0 loss against its expectation
 CARD = "cuda"              # the device phase 15 trains on
@@ -2668,11 +2789,24 @@ TRAIN_FAULTS = {
 
 
 def fault_value(name):
+    """The planted fault ``name`` for ``Patched``, acting on this thread
+    only: the CPU's side of a comparison (``cpu_job``) may call the
+    patched function on its own thread meanwhile, and gets the plain
+    one."""
+    import threading
     from repro_torch.models import layers
+    from repro_torch.train import optimizer
+    owner = threading.get_ident()
     if name == "attention_detached":
         plain = layers.flash_attention
-        return lambda *a, **k: plain(*a, **k).detach()
-    return lambda beta, step: 1.0
+
+        def detached(*a, **k):
+            out = plain(*a, **k)
+            return out.detach() if threading.get_ident() == owner else out
+        return detached
+    plain = optimizer._bias_correction
+    return lambda beta, step: (1.0 if threading.get_ident() == owner
+                               else plain(beta, step))
 
 
 def timed(fn, *args, **kwargs):
@@ -2696,11 +2830,12 @@ def kb_batches(data, n, rows):
 class StepClock:
     """While entered, every ``Model.train_step`` on the card is timed (a
     synchronize at either end) and its loss and gradient norm read; the
-    call at step ``profile_step`` runs under ``profile_run``."""
+    call at step ``profile_step`` runs under ``profile_run``.  ``last``
+    keeps the last call's model, optimizer state, batch and step."""
 
     def __init__(self, profile_step=None):
         self.profile_step = profile_step
-        self.steps, self.profile = [], None
+        self.steps, self.profile, self.last = [], None, None
 
     def __enter__(self):
         from repro_torch.models import model
@@ -2722,6 +2857,7 @@ class StepClock:
                 out.append(clock.inner(mdl, opt_state, batch, step))
                 sync()
             met = out[0][1]
+            clock.last = (mdl, out[0][0], batch, step)
             clock.steps.append({"step": step,
                                 "ms": (time.perf_counter() - t0) * 1e3,
                                 "loss": float(met["loss"]),
@@ -2825,6 +2961,26 @@ def bf16_train(cfg, data, build_dir) -> dict:
     return rec
 
 
+def walk_step(fn, arguments) -> dict:
+    """One step ``fn()`` on the card under the cost walk
+    (``repro_torch.analysis.cost.walk``): counted FLOPs (matrix products
+    apart), bytes, ops and memory, the roofline terms of those counts,
+    and the step's own wall ms (the walk's host work included)."""
+    from repro_torch.analysis import cost
+    from repro_torch.analysis import roofline as RL
+    sync()
+    t0 = time.perf_counter()
+    _, rec = cost.walk(fn, arguments)
+    sync()
+    wall = time.perf_counter() - t0
+    return {"flops": rec["flops"], "dot_flops": rec["dot_flops"],
+            "bytes": rec["bytes"], "ops": rec["ops"],
+            "memory": rec["memory"],
+            "compute_ms": rec["flops"] / RL.PEAK_FLOPS * 1e3,
+            "memory_ms": rec["bytes"] / RL.HBM_BW * 1e3,
+            "walked_step_ms": wall * 1e3}
+
+
 def zamba_whole() -> dict:
     """``zamba2_1p2b``'s ``CONFIG`` whole (38 layers, microbatches 2,
     remat full, bfloat16) through ``repro_torch.launch.train.main`` at 8 x
@@ -2834,9 +2990,13 @@ def zamba_whole() -> dict:
     d_model x ``INIT_STD``^2 (0.82) and the cross-entropy of a random
     label is ln(V) + s^2 / 2 (10.78, not ln(32000) = 10.37: the logits
     are not uniform); times, peak memory, one profiled step (the last)
-    and model FLOP/s (6 N tokens) against the bf16 peak."""
+    and model FLOP/s (``roofline.model_flops_estimate``: 6 N tokens, N
+    the active parameters) against the bf16 peak.  Then one more step
+    under the cost walk (``step_count``: counted FLOPs, bytes and memory,
+    for phase 16)."""
     import math
-    from repro_torch.configs.base import get_config
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.launch import train as launch
     cfg = get_config("zamba2_1p2b")
     B, S = 8, 2048
@@ -2846,21 +3006,30 @@ def zamba_whole() -> dict:
     with StepClock(profile_step=3) as clock:
         launch.main(ZAMBA_ARGS)
     wall = time.perf_counter() - t0
-    n = cfg.param_counts()["total"]
+    peak = torch.cuda.max_memory_allocated()
+    counts = cfg.param_counts()
     tm = clock.timing(B, S)
-    flops = 6 * n * B * S / (tm["median_step_ms"] / 1e3)
+    shape = ShapeConfig("zamba2_whole", S, B, "train")
+    flops = RL.model_flops_estimate(cfg, shape) / (tm["median_step_ms"] / 1e3)
+    mdl, opt, batch, step = clock.last
+    clock.last = None
+    params = dict(mdl.named_parameters())
+    step_count = walk_step(lambda: (params, *mdl.train_step(
+        opt, batch, step + 1)), (params, opt, batch))
+    del mdl, opt, batch, params
     losses = [s["loss"] for s in clock.steps]
     norms = [s["grad_norm"] for s in clock.steps]
-    rec = {"params": n, "batch": B, "seq": S, "microbatches":
+    rec = {"params": counts["total"], "active_params": counts["active"],
+           "batch": B, "seq": S, "microbatches":
            cfg.microbatches, "remat": cfg.remat, **tm, "losses": losses,
            "grad_norms": norms, "ln_vocab": math.log(cfg.vocab_size),
            "expected_step0_loss": math.log(cfg.vocab_size)
            + cfg.d_model * INIT_STD ** 2 / 2,
-           "call_s": wall, "held_bytes": held,
-           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "call_s": wall, "held_bytes": held, "peak_bytes": peak,
            "profiled_step": clock.profile,
            "model_flops_per_s": flops,
-           "bf16_peak_share": flops / BF16_PEAK_FLOPS,
+           "bf16_peak_share": flops / RL.PEAK_FLOPS,
+           "step_count": step_count,
            "card": torch.cuda.get_device_name(0)}
     rec["ok"] = len(losses) == 4 and all(np.isfinite(losses + norms)) and \
         abs(losses[0] - rec["expected_step0_loss"]) <= LN_VOCAB_TOL
@@ -3034,6 +3203,126 @@ def train_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the analysis layer
+# ---------------------------------------------------------------------------
+# phase 5's bounds as PERF.md's kernel table gives them (ms, 4 decimals):
+# its largest shapes are fixed by the seeded data, so the counted bytes
+# must come out as the hand formulas they replace did
+PHASE5_BOUND_MS = {"bitonic_sort_tiles": 0.0200,
+                   "bitonic_merge_pairs": 0.0200, "unique_mask": 0.0300,
+                   "probe_sorted": 0.0002}
+COUNT_KEYS = ("flops", "dot_flops", "bytes", "sorts", "kernels", "coll",
+              "coll_count")
+
+
+def fused_program_counts(kbs, rec) -> dict:
+    """Phase 16's part of phase 9: ``lower_fused_programs`` on LUBM-L's
+    warm fused KBs, the card's and the CPU's, from the same capacity memo;
+    the counts must be equal and the memo untouched.  Each program's
+    memory term (counted bytes over ``roofline.HBM_BW``) beside the
+    profiled warm run's busy time."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.engine import plan
+    from repro_torch.engine.fused import lower_fused_programs
+    memo = dict(plan._CAP_MEMO)
+    t0 = time.perf_counter()
+    card = lower_fused_programs(kbs[0])
+    sync()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = lower_fused_programs(kbs[1])
+    t_cpu = time.perf_counter() - t0
+    if plan._CAP_MEMO != memo:
+        fail("lower_fused_programs changed the capacity memo")
+    if set(card) != {"round", "fixpoint"} or any(
+            {k: card[n][k] for k in COUNT_KEYS}
+            != {k: cpu[n][k] for k in COUNT_KEYS} for n in card):
+        fail(f"lower_fused_programs: card {card} vs cpu {cpu}")
+    prof = rec["profiled_warm"]
+    out = {"programs": {n: {"flops": c["flops"], "bytes": c["bytes"],
+                            "sort_ops_static": c["sort_ops_static"],
+                            "trip_count": c["trip_count"],
+                            "kernels": c["kernels"],
+                            "memory_ms": c["bytes"] / RL.HBM_BW * 1e3,
+                            "compute_ms": c["flops"] / RL.PEAK_FLOPS * 1e3}
+                        for n, c in card.items()},
+           "equal_card_cpu": True, "count_card_s": t_card,
+           "count_cpu_s": t_cpu,
+           "warm_rounds": rec["warm"]["rounds"],
+           "profiled_warm_wall_ms": prof["wall_ms"],
+           "profiled_warm_busy_ms": prof["device_busy_ms"]}
+    log(f"[analysis] lubm_l fused programs {json.dumps(out)}")
+    return out
+
+
+def op_roofline_both(largest) -> dict:
+    """``engine_op_roofline`` at phase 5's largest shapes (the sort's n at
+    arity 1, which reaches the sort kernel; the unique mask's rows), on the
+    card and on the CPU; every count must be equal."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.engine.relation import numpy_dtype
+    keys = largest["bitonic_sort_tiles"][1][0]
+    rows = largest["unique_mask"][1][0]
+    out = {}
+    for n, arity, dt in ((keys.numel(), 1, keys.dtype),
+                         (rows.shape[0], rows.shape[1], rows.dtype)):
+        got = {d: RL.engine_op_roofline(n, arity, numpy_dtype(dt), device=d)
+               for d in ("cuda", "cpu")}
+        if got["cuda"] != got["cpu"]:
+            fail(f"engine_op_roofline({n}, {arity}): card {got['cuda']} "
+                 f"vs cpu {got['cpu']}")
+        out[f"{n}x{arity}"] = {
+            op: {**{k: got["cuda"][op][k] for k in ("flops", "bytes",
+                                                     "bytes_per_fact")},
+                 "memory_ms": got["cuda"][op]["bytes"] / RL.HBM_BW * 1e3}
+            for op in ("sort", "probe", "absorb")}
+    return out
+
+
+def analysis_phase(largest, rows, fused_counts, served, trained,
+                   smi) -> dict:
+    """Phase 16: the engine's unit costs card against CPU, phase 5's
+    bounds as counted, phase 9's fused counts, and the counted steps of
+    phases 12 and 15 beside their measured ones."""
+    from repro_torch.analysis import roofline as RL
+    bounds = {r["name"]: r["bound_ms"] for r in rows if r["name"] in
+              PHASE5_BOUND_MS}
+    if {k: round(v, 4) for k, v in bounds.items()} != PHASE5_BOUND_MS:
+        fail(f"phase 5's counted bounds {bounds} are not PERF.md's "
+             f"{PHASE5_BOUND_MS}")
+    zamba = trained["zamba2_1p2b"]
+    z = zamba["step_count"]
+    stable = served["stablelm_12b"]
+    d = stable["decode_step_count"]
+    for name, c in (("zamba2_1p2b train step", z),
+                    ("stablelm_12b decode step", d)):
+        if not (c["dot_flops"] > 0 and c["bytes"] > 0
+                and c["memory"]["argument_bytes"] > 0
+                and np.isfinite([c["flops"], c["bytes"]]).all()):
+            fail(f"{name}: counted {c}")
+    out = {"card": smi,
+           "constants": {"PEAK_FLOPS": RL.PEAK_FLOPS, "HBM_BW": RL.HBM_BW,
+                         "LINK_BW": RL.LINK_BW},
+           "engine_op_roofline": op_roofline_both(largest),
+           "phase5_bound_ms": bounds,
+           "fused_programs_lubm_l": fused_counts,
+           "zamba2_train_step": {
+               "counted": z, "median_step_ms": zamba["median_step_ms"],
+               "profiled_busy_ms": zamba["profiled_step"]["device_busy_ms"],
+               "peak_bytes": zamba["peak_bytes"],
+               "held_bytes": zamba["held_bytes"],
+               "model_flops_per_s": zamba["model_flops_per_s"],
+               "bf16_peak_share": zamba["bf16_peak_share"]},
+           "stablelm_12b_decode_step": {
+               "counted": d,
+               "median_step_ms": stable["decode_ms_per_token"],
+               "profiled_busy_ms":
+                   stable["decode_step_profile"]["device_busy_ms"],
+               "peak_bytes": stable["peak_bytes"]}}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -3148,6 +3437,13 @@ def main() -> int:
     prof.append(profile_run("tc_wide materialize", lambda: materialize(kb)))
     del kb
 
+    # phase 9's CPU cold fused runs start now, in a child, beside the
+    # card's work of phases 7-9
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    cold_dir = tempfile.mkdtemp(prefix="chip_smoke_fused_cpu_",
+                                dir=os.path.join(HERE, "build"))
+    cold_proc = start_fused_cpu_cold(cold_dir)
+
     # 7. deltas at full size: card against CPU and against from-scratch
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -3195,24 +3491,26 @@ def main() -> int:
             fail(f"deep chain: {warm['fused_pulls']} fused pulls warm, "
                  f"expected {DEEP_PULLS}")
 
-    workloads = [
-        ("lubm_l", lambda d: EngineKB(LUBM_L, facts, device=d), None),
-        ("tc_wide", lambda d: EngineKB.from_stream(
-            TC, tc_wide_chunks(TC_CHAINS), device=d), None),
-        ("deep_chain", lambda d: EngineKB(deep_prog, deep_facts, device=d),
-         deep_checks)]
+    workloads = [(name, make_kb, None, functools.partial(
+        fused_cpu_cold_run, cold_proc, cold_dir, name))
+        for name, make_kb in fused_workloads(facts)]
+    workloads.append(("deep_chain", lambda d: EngineKB(
+        deep_prog, deep_facts, device=d), deep_checks, None))
     fused_recs, fused_kbs = [], {}
     launches_fused = {k: 0 for k in KERNELS}
     loops_fused = 0
     prev_flag = os.environ.get("REPRO_FUSED")
     try:
-        for name, make_kb, checks in workloads:
+        for name, make_kb, checks, cpu_cold in workloads:
             rec, lc, loops, kbs = fused_workload(
-                name, make_kb, checks or (lambda cold, warm: None))
+                name, make_kb, checks or (lambda cold, warm: None),
+                cpu_cold)
             fused_recs.append(rec)
             for k in KERNELS:
                 launches_fused[k] += lc[k]
             loops_fused += loops
+            if name == "lubm_l":
+                fused_counts = fused_program_counts(kbs, rec)
             if name == "deep_chain":
                 # one more run, untimed, keeps each device loop's inputs
                 with LoopRecorder() as recorder:
@@ -3238,6 +3536,8 @@ def main() -> int:
             os.environ.pop("REPRO_FUSED", None)
         else:
             os.environ["REPRO_FUSED"] = prev_flag
+        cold_proc.wait()
+        shutil.rmtree(cold_dir, ignore_errors=True)
     del fused_kbs
     fused.clear_programs()
     if any(launches_fused[k] == 0 for k in KERNELS):
@@ -3336,6 +3636,14 @@ def main() -> int:
         fail(f"a kernel was never launched on the KB->training path: "
              f"{launches_train}")
 
+    # 16. the analysis layer: counts card against CPU, and counted steps
+    # beside measured ones
+    t0 = time.perf_counter()
+    analysis = analysis_phase(shapes.largest, rows, fused_counts, served,
+                              trained, smi)
+    analysis["s"] = time.perf_counter() - t0
+    log(f"[analysis] {analysis['s']:.1f} s")
+
     print(json.dumps({"profile": prof}))
     print(json.dumps({"sort_2^22": sort_2_22}))
     print(json.dumps({"probe_grid": grid}))
@@ -3349,6 +3657,7 @@ def main() -> int:
     print(json.dumps({"serve_moe": {**served_moe, "card": smi}}))
     print(json.dumps({"serve_ssm": {**served_ssm, "card": smi}}))
     print(json.dumps({"train": {**trained, "card": smi}}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3360,4 +3669,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.exit(child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--fused-cpu"]:
+        sys.exit(fused_cpu_cold(sys.argv[2]))
     sys.exit(main())

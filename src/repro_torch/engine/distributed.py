@@ -75,6 +75,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.engine import ops, recovery
 from repro_torch.engine.fused import (_DeviceLoop, _Eager, _HostLoop,
                                       _Replay, _upload)
@@ -193,6 +194,10 @@ def _lockstep(bodies):
                     f"shard {d} reached {m.kind} {m.site!r} while shard 0 "
                     f"is at {kind} {site!r}")
         stacked = torch.stack([m.value for m in msgs])
+        if _cost.ACTIVE is not None:
+            # one collective of the SPMD program, at one shard's bytes
+            _cost.collective("all-to-all" if kind == "all_to_all"
+                             else "all-reduce", msgs[0].value.nbytes)
         if kind == "all_to_all":
             recv = stacked.transpose(0, 1)       # (dst, src, cap, ar)
             sends = [recv[d] for d in range(ndev)]
@@ -1349,10 +1354,47 @@ def run_distributed_tc(edges: np.ndarray, ndev: int | None = None,
     return rows, len(rows), st.triggers, st.rounds
 
 
-def lower_distributed_tc(*args, **kwargs):
-    """The reference lowers one sharded TC round to XLA for its multi-pod
-    dry run; the port's byte/op accounting is ROADMAP Queue 1's analysis
-    + benchmarks item."""
-    raise NotImplementedError(
-        "lower_distributed_tc: not ported yet (ROADMAP.md, Queue 1: "
-        "analysis + benchmarks)")
+def lower_distributed_tc(ndev: int, cfg: DistConfig = DistConfig(),
+                         device=None) -> dict:
+    """Dry-run entry: count one TG round of the TC program (delta exchange
+    + planned join + canonical-home absorb) at ``cfg``'s per-shard
+    capacities, for ``ndev`` lockstep shards on one device (the card
+    unless the caller names one).  The reference lowers the round on a
+    target mesh; the port has no mesh until ROADMAP Queue 1 item 12
+    (several cards), so it takes ``ndev``.
+
+    Returns ``repro_torch.analysis.cost.walk``'s record of the round
+    program (its memory included), run once on PAD blocks (the TC round's
+    counts depend on shapes alone).
+    FLOPs and bytes are the whole one-device program, all ``ndev`` shards;
+    the collectives are per shard, as in the reference's per-device
+    program: each bucket exchange counts once as an all-to-all of one
+    shard's (ndev, bucket_cap, 2) buckets, each psum once as an
+    all-reduce."""
+    from repro_torch.engine.dictionary import Dictionary
+    from repro_torch.engine.relation import resolve_device
+    dev = resolve_device(device)
+    program = _tc_program()
+    dic = Dictionary()
+    plans = [compile_rule_plan(r, dic) for r in program.rules]
+    preds = ("T", "e")
+    caps = _Caps(("dryrun", ndev), {p: (None, 1) for p in preds}, ndev=ndev)
+    active = ((plans[1], 0),)                    # T-delta in body position 0
+    derived = ("T",)
+    labels = _round_ovf_labels(active, True, derived)
+    for p in preds:
+        caps.store[p] = cfg.shard_cap
+    caps.delta["T"] = cfg.delta_cap
+    caps.join[(plans[1].key, 0)] = cfg.delta_cap * 4
+    for key in _bucket_keys(labels):
+        caps.bucket[key] = cfg.bucket_cap
+    fn, _, _ = _build_dist_round(ndev, preds, caps, active, ("T",), True)
+    pad = pad_value(torch.int32)
+    stores = [torch.full((ndev * cfg.shard_cap, 2), pad, dtype=torch.int32,
+                         device=dev) for _ in preds]
+    counts = torch.zeros(len(preds) * ndev, dtype=torch.int64, device=dev)
+    delta = torch.full((ndev * cfg.delta_cap, 2), pad, dtype=torch.int32,
+                       device=dev)
+    _, rec = _cost.walk(lambda: fn(*stores, counts, delta),
+                        (stores, counts, delta))
+    return rec

@@ -468,6 +468,69 @@ def _fixpoint_program(s_preds, o_preds, caps, active, use_prefilter,
 
 
 # ---------------------------------------------------------------------------
+# materialize_fused's plan and program inputs (shared with
+# lower_fused_programs, so a count runs at the shapes a run runs at)
+# ---------------------------------------------------------------------------
+def _rule_plans(kb):
+    """Each rule's fused plan by ``id(rule)``; None when a rule lies outside
+    the fused fragment."""
+    plans = {}
+    for rule in kb.program.rules:
+        plan = compile_rule_plan(rule, kb.dict)
+        if plan is None:
+            return None
+        plans[id(rule)] = plan
+    return plans
+
+
+def _plan_caps(kb, plans, stores, counts, lean: bool = False):
+    """The capacity planner of a run that starts from ``stores`` holding
+    ``counts`` rows; the memo keys it by the program and the facts the run
+    starts from."""
+    fp = program_fingerprint((plans[id(r)].key for r in kb.program.rules),
+                             sum(counts.values()))
+    return _Caps(fp, {p: (stores[p], counts[p]) for p in stores}, lean=lean)
+
+
+def _active(plans, rules, live):
+    """(plan, delta position) of every body atom over a live predicate."""
+    return tuple((plans[id(r)], j) for r in rules
+                 for j, a in enumerate(r.body) if a.pred in live)
+
+
+def _round_args(preds, stores, counts, delta_preds, deltas, caps, dev):
+    """A round program's inputs: the stores, their counts, and each live
+    delta (pred -> (rows, count)) at its planned capacity."""
+    return [*(stores[p] for p in preds),
+            _upload([counts[p] for p in preds], dev),
+            *(ops.fit_rows(deltas[p][0], caps.delta_cap(p))
+              for p in delta_preds)]
+
+
+def _fixpoint_inputs(kb, caps, s_preds, o_preds, stores, deltas, rounds,
+                     n_ovf, dev):
+    """A fixpoint program's constants (the stores) and initial state:
+    empty tails, the live deltas (pred -> (rows, count)) at their planned
+    capacities, PAD blocks where none is live, and the scalars (tail
+    counts, delta counts, rounds, triggers, derived, iterations, one flag
+    per overflow label).  Returns (consts, state, delta counts)."""
+    def pad_block(rows, p):
+        return torch.full((rows, kb.arities[p]), kb.rels[p].pad,
+                          dtype=stores[p].dtype, device=dev)
+
+    n = len(s_preds)
+    dcounts = [deltas[p][1] if p in deltas else 0 for p in s_preds]
+    consts = [stores[p] for p in s_preds + o_preds]
+    state = [*(pad_block(caps.tail_cap(p), p) for p in s_preds),
+             *(ops.fit_rows(deltas[p][0], caps.delta_cap(p))
+               if p in deltas else pad_block(caps.delta_cap(p), p)
+               for p in s_preds),
+             _upload([0] * n + dcounts + [rounds, 0, 0, 0] + [0] * n_ovf,
+                     dev)]
+    return consts, state, dcounts
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
@@ -496,12 +559,9 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
     including checkpoints written by the two-phase executor."""
     from repro_torch.engine.materialize import MatStats
     program = kb.program
-    plans = {}
-    for rule in program.rules:
-        plan = compile_rule_plan(rule, kb.dict)
-        if plan is None:
-            return None
-        plans[id(rule)] = plan
+    plans = _rule_plans(kb)
+    if plans is None:
+        return None
 
     preds = tuple(sorted(kb.rels))
     use_prefilter = mode == "tg"
@@ -524,10 +584,8 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
         if rel.count and not rel.is_lexsorted:
             rel = ops.dedup(rel)
         stores[p], counts[p] = rel.data, rel.count
-    fp = program_fingerprint((plans[id(r)].key for r in program.rules),
-                             sum(counts.values()))
-    caps = _Caps(fp, {p: (stores[p], counts[p]) for p in preds},
-                 lean=initial_deltas is not None)
+    caps = _plan_caps(kb, plans, stores, counts,
+                      lean=initial_deltas is not None)
     if ck.caps_state is not None:
         caps.adopt(ck.caps_state)   # converged plan from the checkpoint
     for p in preds:
@@ -542,10 +600,6 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
     loop_plans = [plans[id(r)] for r in loop_rules]
     deltas: dict = {}           # pred -> (data at planner delta cap, count)
     progressed = resume is not None
-
-    def pad_block(rows, p):
-        return torch.full((rows, kb.arities[p]), kb.rels[p].pad,
-                          dtype=stores[p].dtype, device=dev)
 
     def state_fn():
         """Host-consistent checkpoint payload (single shard): trimmed
@@ -569,10 +623,8 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
                                    prefilter, layout)
             prog = _cached_program(sig, lambda: _round_program(
                 preds, caps, active, delta_preds, prefilter, dev))
-            args = [*(stores[p] for p in preds),
-                    _upload([counts[p] for p in preds], dev),
-                    *(ops.fit_rows(deltas[p][0], caps.delta_cap(p))
-                      for p in delta_preds)]
+            args = _round_args(preds, stores, counts, delta_preds, deltas,
+                               caps, dev)
             outs = prog.run(*args)
             vals = _pull(outs[-1])
             k = len(prog.derived)
@@ -616,15 +668,9 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
             prog = _cached_program(sig, lambda: _fixpoint_program(
                 s_preds, o_preds, caps, active, use_prefilter, max_rounds,
                 dev))
-            n_ovf = len(prog.labels)
-            dcounts = [deltas[p][1] if p in deltas else 0 for p in s_preds]
-            consts = [stores[p] for p in s_preds + o_preds]
-            state = [*(pad_block(caps.tail_cap(p), p) for p in s_preds),
-                     *(ops.fit_rows(deltas[p][0], caps.delta_cap(p))
-                       if p in deltas else pad_block(caps.delta_cap(p), p)
-                       for p in s_preds),
-                     _upload([0] * n + dcounts + [st.rounds, 0, 0, 0]
-                             + [0] * n_ovf, dev)]
+            consts, state, dcounts = _fixpoint_inputs(
+                kb, caps, s_preds, o_preds, stores, deltas, st.rounds,
+                len(prog.labels), dev)
             enter = sum(dcounts) > 0 and st.rounds < max_rounds
             out = prog.run(consts, state, enter)
             vals = _pull(out[-1])
@@ -706,10 +752,7 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
             if tail is not None:
                 run_fixpoint(*tail)
                 break
-            active = tuple((plans[id(r)], j)
-                           for r in loop_rules
-                           for j, a in enumerate(r.body)
-                           if a.pred in deltas)
+            active = _active(plans, loop_rules, deltas)
             if not active:
                 break
             deltas = run_round(active, live)
@@ -748,10 +791,107 @@ def materialize_fused(kb, mode: str = "tg", max_rounds: int = 10_000,
     return st
 
 
+# ---------------------------------------------------------------------------
+# program counts for the roofline analysis (nothing captured or committed)
+# ---------------------------------------------------------------------------
+# the trip count at which a fixpoint program is counted: the reference's
+# HLO walk reads a while loop's trip count from a scalar constant in its
+# condition (``hlo_analysis._trip_count``), and the fixpoint's condition
+# holds none (its round limit is a loop-carried scalar), so the walk takes
+# its default, one iteration
+FIXPOINT_TRIPS = 1
+
+
+def _probe_deltas(kb, preds, caps):
+    """Live deltas at the planner's capacities, for counting: each holds
+    the first rows of its predicate's store (real facts, lexsorted), PAD
+    after them.  pred -> (rows, count)."""
+    out = {}
+    for p in preds:
+        rel = kb.rels[p]
+        cap = caps.delta_cap(p)
+        n = min(rel.count, cap)
+        out[p] = (ops.fit_rows(rel.data[:n], cap).clone(), n)
+    return out
+
+
 def lower_fused_programs(kb, mode: str = "tg"):
-    """The reference lowers its round and fixpoint programs to XLA for the
-    roofline analysis; the port's byte/op accounting is ROADMAP Queue 1
-    item 6."""
-    raise NotImplementedError(
-        "lower_fused_programs: not ported yet (ROADMAP.md, Queue 1: "
-        "analysis + benchmarks)")
+    """Count (without capturing and without committing) the fused
+    executor's programs for ``kb`` at the capacity planner's current
+    shapes: ``{name: record}`` (``repro_torch.analysis.cost``'s record,
+    with ``sort_ops_static`` and ``trip_count``) for the steady-state round
+    program and, when the program has a linear tail, the fixpoint program.
+
+    Call it AFTER a real materialization, so the capacity memo holds the
+    converged buckets and the planner reproduces the shapes the timed run
+    ran at.  Each program runs once as plain torch ops on the KB's device,
+    on copies: the stores at their planned capacities, each live delta the
+    first rows of its store.  Its outputs and overflow flags are dropped:
+    no retry, no memo update, no graph.  A fixpoint program counts one
+    iteration (``FIXPOINT_TRIPS``, the trip count the reference's walk
+    takes for it).  ``sort_ops_static`` is the number of sort calls in one
+    program body.  Returns None outside the fused fragment, ``{}`` when no
+    rule reads a derived predicate."""
+    from repro_torch.analysis import cost
+    plans = _rule_plans(kb)
+    if plans is None:
+        return None
+    rules = kb.program.rules
+    preds = tuple(sorted(kb.rels))
+    use_prefilter = mode == "tg"
+    dev = kb.device
+    # materialize_fused's plan: a run of a KB starts from its base facts (the
+    # reference keys by the materialized count, whose pow-2 bucket is
+    # usually another, and then plans from cold guesses)
+    caps = _plan_caps(kb, plans, {p: kb.base[p].data for p in preds},
+                      {p: kb.base[p].count for p in preds})
+    loop_plans = [plans[id(r)] for r in rules]
+    derived = {pl.head_pred for pl in loop_plans}
+    active = _active(plans, rules, derived)
+    if not active:
+        return {}
+
+    def counted(fn, *args, trips=1):
+        with cost.Recorder() as r:
+            fn(*args)
+        total = cost.Cost()
+        total.add(r.cost, trips)
+        rec = total.as_dict()
+        rec["sort_ops_static"] = r.cost.sorts
+        rec["trip_count"] = trips
+        return rec
+
+    def stores():
+        return {p: ops.fit_rows(kb.rels[p].data, caps.store[p]).clone()
+                for p in preds}
+
+    out = {}
+    delta_in = tuple(sorted({plan.body_preds[jd] for plan, jd in active}))
+    fn, _, _ = _build_round(preds, caps, active, delta_in, use_prefilter)
+    out["round"] = counted(fn, *_round_args(
+        preds, stores(), {p: kb.rels[p].count for p in preds}, delta_in,
+        _probe_deltas(kb, delta_in, caps), caps, dev))
+    # the fixpoint's steady-state live set is usually smaller than the
+    # early-round one (aux predicates quiesce): fall back to singleton live
+    # sets, as the reference does
+    tail = _linear_tail(loop_plans, delta_in)
+    if tail is None:
+        for p in sorted(derived):
+            tail = _linear_tail(loop_plans, (p,))
+            if tail is not None:
+                break
+    if tail is not None:
+        s_preds, t_active = tail
+        o_preds = tuple(p for p in preds if p not in s_preds)
+        step, cond, labels = _build_fixpoint(s_preds, o_preds, caps,
+                                             t_active, use_prefilter, 10_000)
+        consts, state, _ = _fixpoint_inputs(
+            kb, caps, s_preds, o_preds, stores(),
+            _probe_deltas(kb, s_preds, caps), 0, len(labels), dev)
+
+        def iteration():
+            new = step(consts, state)
+            cond(new[-1])
+
+        out["fixpoint"] = counted(iteration, trips=FIXPOINT_TRIPS)
+    return out

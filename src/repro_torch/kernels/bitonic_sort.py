@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset (``kernels.ops.reset_launch_counts``)
@@ -60,6 +61,8 @@ def _check(keys: torch.Tensor, vals: torch.Tensor, block: int) -> None:
         raise ValueError("keys and payload must be contiguous")
 
 
+@_cost.counted("bitonic_sort_tiles",
+                lambda keys, vals, tile: _cost.sort_call_cost(keys))
 def bitonic_sort_tiles(keys: torch.Tensor, vals: torch.Tensor, tile: int):
     """Sort each (tile,) block of keys and payload independently."""
     _check(keys, vals, tile)
@@ -79,6 +82,8 @@ def bitonic_sort_tiles(keys: torch.Tensor, vals: torch.Tensor, tile: int):
     return ko, vo
 
 
+@_cost.counted("bitonic_merge_pairs",
+                lambda keys, vals, width: _cost.sort_call_cost(keys))
 def bitonic_merge_pairs(keys: torch.Tensor, vals: torch.Tensor, width: int):
     """Merge adjacent sorted blocks of width//2 into sorted blocks of
     width."""

@@ -35,8 +35,11 @@ def capture(fn, keep_graph: bool = False):
     """Capture ``fn()`` as a CUDA graph on a side stream of the current
     device.  Returns (graph, fn's outputs, launches per kernel recorded in
     the graph).  The wrappers' calls during the capture are taken back out
-    of the launch counts; a replay adds them (``KO.add_launches``).
+    of the launch counts; a replay adds them (``KO.add_launches``), and
+    under a cost recorder the launches' dict (a ``KO.Made``) also holds
+    the capture's count in ``cost``, which a replay adds too.
     Raises if anything in ``fn`` cannot be captured."""
+    from repro_torch.analysis import cost
     from repro_torch.kernels import ops as KO
     dev = torch.cuda.current_device()
     side = _SIDE_STREAMS.get(dev)
@@ -46,7 +49,9 @@ def capture(fn, keep_graph: bool = False):
              else torch.cuda.CUDAGraph())
     side.wait_stream(torch.cuda.current_stream())
     with KO.uncounted() as made, torch.cuda.stream(side):
-        graph.capture_begin()
+        # the capture's own bookkeeping ops are not the program's work
+        with cost.suspended():
+            graph.capture_begin()
         try:
             out = fn()
         except BaseException:
@@ -55,9 +60,10 @@ def capture(fn, keep_graph: bool = False):
             except RuntimeError:
                 pass            # the capture was invalidated by the error
             raise
-        graph.capture_end()
+        with cost.suspended():
+            graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    return graph, out, dict(made)
+    return graph, out, made
 
 
 class WhileLoop:

@@ -19,12 +19,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset (``kernels.ops.reset_launch_counts``)
 LAUNCHES = {"probe_sorted": 0}
 
 
+@_cost.counted("probe_sorted", _cost.probe_cost)
 def probe_sorted(queries: torch.Tensor, hay_sorted: torch.Tensor
                  ) -> torch.Tensor:
     """queries: (N,); hay_sorted: (H,) sorted, H >= 1, same dtype.

@@ -21,7 +21,10 @@ launches the kernel on a CUDA tensor.  Under CUDA graph capture a wrapper
 call records a launch instead of making one, so the fused executor takes
 the calls of a warm-up run and of the capture back out of the counts
 (``uncounted``) and adds the captured launches once per replay
-(``add_launches``).
+(``add_launches``).  The cost walk (``repro_torch.analysis.cost``) is
+kept the same way: ``uncounted`` holds the block's count apart, and
+``add_launches`` adds it per replay.  A pow-2 sort counts its ladder, the
+tile sort and one merge per doubling width, on either device.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import contextlib
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.engine.relation import next_pow2
 from repro_torch.kernels import bitonic_sort as BS
 from repro_torch.kernels import hash_probe as HP
@@ -54,27 +58,40 @@ def reset_launch_counts() -> None:
 
 def add_launches(counts: dict, times: int = 1) -> None:
     """Add ``times`` replays of a captured graph that holds ``counts``
-    launches per kernel."""
+    launches per kernel (and, under a cost recorder, its count)."""
     for c in _COUNTERS:
         for k in c:
             c[k] += counts.get(k, 0) * times
+    if _cost.ACTIVE is not None:
+        _cost.add(getattr(counts, "cost", None), times)
+
+
+class Made(dict):
+    """Launches per kernel made in an ``uncounted`` block; ``cost`` is
+    the block's count when a cost recorder was active, else None."""
+    cost = None
 
 
 @contextlib.contextmanager
 def uncounted():
     """Wrapper calls inside the block leave the counts as they were; the
-    yielded dict holds, after the block, the calls made in it per
-    kernel."""
+    yielded dict holds, after the block, the calls made in it per kernel.
+    The cost walk leaves the block out too, and keeps its count in the
+    dict's ``cost``."""
     before = launch_counts()
-    made: dict = {}
-    try:
-        yield made
-    finally:
-        after = launch_counts()
-        made.update({k: after[k] - before[k] for k in after})
-        for c in _COUNTERS:
-            for k in c:
-                c[k] = before[k]
+    made = Made()
+    with contextlib.ExitStack() as stack:
+        if _cost.counting():
+            made.cost = stack.enter_context(
+                _cost.Recorder(propagate=False)).cost
+        try:
+            yield made
+        finally:
+            after = launch_counts()
+            made.update({k: after[k] - before[k] for k in after})
+            for c in _COUNTERS:
+                for k in c:
+                    c[k] = before[k]
 
 
 def _pow2_tile(tile: int, n: int) -> int:
@@ -83,7 +100,25 @@ def _pow2_tile(tile: int, n: int) -> int:
     return 1 << (t.bit_length() - 1)
 
 
+def _ladder_cost(keys, tile: int) -> dict:
+    """The kernel calls of one pow-2 sort: the tile sort, then a merge at
+    every width from 2 tile to n."""
+    per = _cost.sort_call_cost(keys)
+    merges = (keys.shape[0] // tile).bit_length() - 1
+    out = {"bitonic_sort_tiles": (1, *per)}
+    if merges:
+        out["bitonic_merge_pairs"] = (merges, *per)
+    return out
+
+
 def _sort_pow2(keys, vals, tile: int):
+    if _cost.ACTIVE is not None:
+        return _cost.kernel("sort_with_payload", _ladder_cost(keys, tile),
+                            _sort_ladder, keys, vals, tile, sorts=1)
+    return _sort_ladder(keys, vals, tile)
+
+
+def _sort_ladder(keys, vals, tile: int):
     if keys.device.type == "cpu":
         # the plain version of the whole ladder: one sort of the pairs
         BS._check(keys, vals, tile)

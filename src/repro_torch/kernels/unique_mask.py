@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset (``kernels.ops.reset_launch_counts``)
 LAUNCHES = {"unique_mask": 0}
 
 
+@_cost.counted("unique_mask", _cost.unique_mask_cost)
 def unique_mask(data: torch.Tensor) -> torch.Tensor:
     """data: (N, C) int16/int32/int64 lexsorted, PAD rows last.  Returns
     (N,) int32: 1 where a valid row differs from the row before it."""

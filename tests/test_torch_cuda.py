@@ -863,3 +863,114 @@ def test_kb_linearizer_on_a_card_kb_matches_the_cpu(card):
     (vg, sg, bg), (vc, sc, bc) = streams
     assert vg == vc
     assert np.array_equal(sg, sc) and np.array_equal(bg, bc)
+
+
+# ---------------------------------------------------------------------------
+# the cost walk (``repro_torch.analysis``) on the card
+# ---------------------------------------------------------------------------
+def test_counts_on_the_card_equal_the_cpus(card, monkeypatch):
+    """One count on both devices: the sorted-store cores at 2^12 rows
+    (arity 1 reaches the sort kernel, arity 2 the packed-key argsort) and
+    the fused programs of LUBM-L ``n_univ=1`` from one memo, every field
+    equal, kernel formulas included."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.engine.fused import lower_fused_programs
+    for arity in (1, 2):
+        assert RL.engine_op_roofline(1 << 12, arity, device=card) == \
+            RL.engine_op_roofline(1 << 12, arity, device="cpu")
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    kbs = []
+    for device in (card, "cpu"):
+        kb = EngineKB(LUBM_L, lubm_facts(n_univ=1), device=device)
+        materialize(kb, mode="tg")
+        kbs.append(kb)
+    got, want = (lower_fused_programs(kb) for kb in kbs)
+    assert got == want and set(got) == {"round", "fixpoint"}
+    assert "probe_sorted" in got["round"]["kernels"]
+
+
+def test_a_replayed_graph_adds_its_capture_count(card):
+    """A captured program's count (kept apart at capture, as its launches
+    are) is added once per replay: three calls of a ``_Replay`` count
+    three runs of the function and the first call's copy of its input."""
+    from repro_torch.analysis import cost
+    n = 1 << 12
+    keys = torch.randint(0, 1 << 20, (n,), device=card, dtype=torch.int32)
+    pos = torch.arange(n, dtype=torch.int32, device=card)
+    w = torch.randn(64, 64, device=card)
+
+    def fn(k):
+        ks, _ = KO.sort_with_payload(k, pos, tile=256)
+        return ks, w @ w
+
+    with cost.Recorder() as one:
+        fn(keys)
+    rep = fused._Replay(fn)
+    with cost.Recorder() as r:
+        rep(keys)
+        rep(*rep.static)
+        rep(*rep.static)
+    torch.cuda.synchronize()
+    got, once = r.as_dict(), one.as_dict()
+    assert got.get("unrecorded", 0) == 0
+    for field in ("flops", "dot_flops", "sorts"):
+        assert got[field] == 3 * once[field], field
+    assert got["kernels"] == {k: {f: 3 * v for f, v in c.items()}
+                              for k, c in once["kernels"].items()}
+    assert got["bytes"] == 3 * once["bytes"] + 2 * keys.nbytes   # the clone
+
+
+def test_a_fused_materialization_counts_on_the_card(fused_card):
+    """LUBM-L ``n_univ=4`` materialized cold under a ``cost.Recorder``, on
+    the card (its rounds and fixpoint captured while counting) and on the
+    CPU, each from an empty memo and program cache: the rows of both
+    equal, every replay counted, the same kernel and sort calls and kernel
+    FLOPs; the sort and mask bytes equal, and the card's probe bytes, a
+    captured probe counting its bound, no fewer than the CPU's."""
+    from repro_torch.analysis import cost
+    prog, facts = WORKLOADS["lubm"]()
+    out = {}
+    for device in (fused_card, "cpu"):
+        plan._CAP_MEMO.clear()
+        fused.clear_programs()
+        with cost.Recorder() as r:
+            rows, counted, _ = _fused_run(prog, facts, device)
+        torch.cuda.synchronize()
+        out[str(device)] = rows, counted, r.as_dict()
+    (rg, cg, got), (rc, cc, want) = out["cuda"], out["cpu"]
+    assert cg == cc and cg[4] == {"fused": True}
+    assert all(np.array_equal(rg[p], rc[p]) for p in rc)
+    assert "unrecorded" not in got and got["sorts"] == want["sorts"]
+    assert set(got["kernels"]) == set(want["kernels"]) >= {
+        "bitonic_sort_tiles", "unique_mask", "probe_sorted"}
+    for name, k in want["kernels"].items():
+        g = got["kernels"][name]
+        assert (g["calls"], g["flops"]) == (k["calls"], k["flops"]), name
+        if name == "probe_sorted":
+            assert g["bytes"] >= k["bytes"]
+        else:
+            assert g["bytes"] == k["bytes"], name
+
+
+def test_counted_cores_at_phase5_shapes_leave_the_card_sound(card):
+    """The steps of the smoke's phase 16 alone, each followed by a
+    synchronize that would raise a CUDA error left by any launch:
+    ``engine_op_roofline`` at phase 5's largest shapes (2^22 int32 keys at
+    arity 1, 2^23 rows of two int32 columns), then one counted
+    ``unique_mask`` call on rows of that shape, whose mask equals its
+    plain version and whose count is its formula."""
+    from repro_torch.analysis import cost
+    from repro_torch.analysis import roofline as RL
+    for n, arity in ((1 << 22, 1), (1 << 23, 2)):
+        got = RL.engine_op_roofline(n, arity, np.int32, device=card)
+        torch.cuda.synchronize()
+        assert got["sort"]["bytes"] > 0, (n, arity)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, 1 << 20, (1 << 23, 2)).astype(np.int32)
+    rows = torch.from_numpy(rows[np.lexsort(rows.T[::-1])]).to(card)
+    with cost.Recorder() as r:
+        mask = KO.unique_mask(rows)
+    torch.cuda.synchronize()
+    assert torch.equal(mask.cpu(), ref.unique_mask_ref(rows.cpu()))
+    assert r.as_dict()["bytes"] == rows.numel() * 4 + 4 * rows.shape[0]

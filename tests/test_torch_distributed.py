@@ -544,8 +544,16 @@ def test_caps_bucket_guess_matches_reference(monkeypatch):
 
 
 def test_lower_distributed_tc_is_not_ported():
-    with pytest.raises(NotImplementedError, match="analysis"):
-        D.lower_distributed_tc()
+    """``lower_distributed_tc`` counts one sharded TC round for ``ndev``
+    lockstep shards (``tests/test_torch_analysis.py`` holds it against the
+    reference's): 3 bucket exchanges, each one shard's (ndev, bucket, 2)
+    int32 buckets, and 3 psums; the work grows with the shards."""
+    cfg = D.DistConfig(shard_cap=1 << 8, delta_cap=1 << 6, bucket_cap=1 << 4)
+    got = {n: D.lower_distributed_tc(n, cfg, device="cpu") for n in (1, 2)}
+    for n, rec in got.items():
+        assert rec["coll"]["all-to-all"] == 3 * n * (1 << 4) * 2 * 4
+        assert rec["coll_count"] == 6
+    assert got[2]["bytes"] > got[1]["bytes"] > 0
 
 
 def test_checkpoint_loader_reads_shard_lists(tmp_path):

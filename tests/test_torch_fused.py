@@ -436,6 +436,28 @@ def test_storm_floors_the_guesses(monkeypatch):
         1 << 17
 
 
-def test_lower_fused_programs_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.lower_fused_programs(None)
+def test_lower_fused_programs_is_not_ported(monkeypatch):
+    """``lower_fused_programs`` counts the round and fixpoint programs of a
+    materialized KB (``tests/test_torch_analysis.py`` holds them against
+    the reference's): None outside the fused fragment, ``{}`` when no rule
+    reads a derived predicate, and neither a retry nor a memo entry."""
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    monkeypatch.setattr(plan, "_CAP_MEMO", {})
+    ns = {}
+    exec(SCENARIOS, ns)
+    env = port_env()
+    facts = [TT.parse_atom("p(a, b)")]
+    assert fused.lower_fused_programs(
+        env.kb(TT.parse_program(ns["EXIST"]), facts)) is None
+    assert fused.lower_fused_programs(
+        env.kb(TT.parse_program("p(X, Y) -> Q(X, Y)"), facts)) == {}
+    kb = env.kb(TT.parse_program(ns["TC"]), ns["chain"](env, 20, 12, 5))
+    materialize(kb, mode="tg")
+    memo, retries = dict(plan._CAP_MEMO), ops.HOST_SYNC_STATS.fused_retries
+    got = fused.lower_fused_programs(kb)
+    assert set(got) == {"round", "fixpoint"}
+    assert plan._CAP_MEMO == memo
+    assert ops.HOST_SYNC_STATS.fused_retries == retries
+    for rec in got.values():
+        assert rec["sort_ops_static"] == rec["sorts"] >= 1
+        assert rec["bytes"] > 0 and rec["trip_count"] == 1

@@ -86,7 +86,8 @@ def test_unported_features_raise(how, monkeypatch):
     """The sharded executor runs behind ``backend="dist"`` and
     ``REPRO_DIST=1`` in ``tg`` (``seminaive`` runs two-phase, as on the
     reference); what it leaves unported, the XLA lowering of a sharded
-    round, raises naming its ROADMAP item.  ``tg_linear`` returns before
+    round on several cards (the multi-card dry run), raises naming its
+    ROADMAP item.  ``tg_linear`` returns before
     the executor flags are read, as on the reference, so under
     ``REPRO_DIST=1`` it runs.  (``REPRO_FUSED=1`` runs the fused executor:
     see ``tests/test_torch_fused.py``.)"""
@@ -110,15 +111,27 @@ def test_unported_features_raise(how, monkeypatch):
     st_two = materialize(kb_two, mode="seminaive", **kw)
     assert "dist" not in st_two.extra
     assert kb.decode_facts() == kb_two.decode_facts()
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: analysis \\+ benchmarks"):
-        distributed.lower_distributed_tc()
+    from repro_torch.launch import dryrun
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        dryrun.main(["--arch", "stablelm_12b", "--shape", "train_4k",
+                     "--multi-pod"])
 
 
 def test_core_holds_its_own_symbolic_layer():
     for name in ("terms", "unify", "chase", "eg", "tg_linear", "rewrite",
                  "tg_datalog"):
         assert (PKG / "core" / f"{name}.py").is_file(), name
+
+
+def test_analysis_holds_its_own_accounting():
+    """The cost walk and the roofline are the port's own (the reference's
+    ``repro.analysis`` parses HLO); with no recorder active, no dispatch
+    mode is pushed and the kernel wrappers run as they are."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    from repro_torch.analysis import cost
+    for name in ("cost", "roofline"):
+        assert (PKG / "analysis" / f"{name}.py").is_file(), name
+    assert cost.ACTIVE is None and _get_current_dispatch_mode() is None
 
 
 @pytest.mark.parametrize("alone", [False, True])

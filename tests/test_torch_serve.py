@@ -413,16 +413,20 @@ def test_reference_ssd_is_exact_in_one_chunk_only(chunk):
 
 
 def test_training_and_dry_run_raise():
-    """The dry run raises, naming the analysis item.  Training is ported
-    (``tests/test_torch_train*.py``): a serving model's ``train_step``
-    refuses, since it holds frozen weights and no MTP head."""
-    mdl = PM.build(PB.get_smoke_config("stablelm_12b"), "cpu")
+    """Training is ported (``tests/test_torch_train*.py``): a serving
+    model's ``train_step`` refuses, since it holds frozen weights and no
+    MTP head.  The dry run is ported (``tests/test_torch_analysis.py``):
+    a decode step of the smoke config counts under fake tensors, its K/V
+    caches updated in place."""
+    cfg = PB.get_smoke_config("stablelm_12b")
+    mdl = PM.build(cfg, "cpu")
     with pytest.raises(ValueError, match="training=True"):
         mdl.train_step({}, {}, 0)
     assert callable(train.main)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: analysis \\+ benchmarks"):
-        dryrun.main()
+    rec, _ = dryrun.count_step(cfg, PB.ShapeConfig("smoke", S, B, "decode"))
+    kv = 2 * cfg.num_layers * B * S * cfg.num_kv_heads * cfg.head_dim * 2
+    assert rec["memory"]["alias_bytes"] == kv
+    assert rec["dot_flops"] > 0
 
 
 def test_serve_launcher_prints_the_references_lines(capsys):

@@ -193,6 +193,25 @@ Phases, each fatal on failure:
    busy time and its peak; phase 15's model FLOP/s from
    ``roofline.model_flops_estimate`` (active parameters) over
    ``roofline.PEAK_FLOPS``.  It adds the ``analysis`` line.
+17. serving on a mesh (``launch/mesh.py``, the models' mesh paths; no
+   kernel of its own), run on the card while phase 15's CPU side finishes
+   (so before phase 16): (i) ``stablelm_12b``'s ``CONFIG`` at full width
+   and depth in bfloat16 through the process path, an in-process NCCL
+   world of one, from phase 12's weights and prompts (8 x 2048 + 64): its
+   tokens phase 12's, its logits within ``BF16_REL``; (ii)
+   ``launch/serve.py --smoke`` under ``torchrun --standalone
+   --nproc-per-node=<cards>``, its tokens the in-process run's; (iii)
+   thread ranks on the card at tp = 2 and 4 (and (2, 2) for the a2a
+   dispatch) of 2-layer float32 copies at full width (``stablelm_12b``,
+   ``qwen3_moe_30b_a3b`` with psum and with a2a, ``deepseek_v3_671b``'s
+   two MLA layers with the dense FFN), 2 x 1040 + 4, each against the
+   same weights without a mesh: tokens equal, logits and every rank's
+   cache chunk within ``F32_RMS``, with two planted faults above it (the
+   log-sum-exp merge without its max correction, a rank writing the new
+   row outside its chunk).  With several cards (i) runs again at tp =
+   the card count, one process per card (logits held, tokens counted:
+   bfloat16 sums in another order flip near-ties), timed.  It adds the
+   ``mesh`` line and a ``launches_mesh`` key to each kernel row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
@@ -200,12 +219,15 @@ a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"tg_linear": {...}}`` line, a ``{"dist": {...}}`` line, a
 ``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
 ``{"serve_ssm": {...}}`` line, a ``{"train": {...}}`` line, an
-``{"analysis": {...}}`` line, a ``{"kernels": [...]}`` line,
+``{"analysis": {...}}`` line, a ``{"mesh": {...}}`` line, a
+``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
 otherwise.  ``chip_smoke.py --child ...`` is phase 8's child process,
-``chip_smoke.py --fused-cpu DIR`` phase 9's CPU cold runs.
+``chip_smoke.py --fused-cpu DIR`` phase 9's CPU cold runs, and
+``chip_smoke.py --mesh-child DIR`` (under ``torchrun``) a rank of phase
+17's run on several cards.
 """
 from __future__ import annotations
 
@@ -1724,6 +1746,7 @@ F32_TOL = 1e-3    # card against CPU, float32: |a - b| <= tol * (1 + |b|)
 F32_RMS = 1e-4    # decode against re-prefill, float32: rms(a - b) <= tol *
                   # rms(b), for the logits and the K/V row or the SSM
                   # states decode wrote
+FULL_RUN: dict = {}   # stablelm_12b's full-width run (phase 17 holds to it)
 BF16_REL = 0.1    # the same, bfloat16 through 40 random layers; set
                   # between a sound step (logits 0.054, K/V row 0.036) and
                   # the planted fault (logits 0.18) on the H100
@@ -1747,7 +1770,9 @@ def serve_run(mdl, tokens, gen, feed=None, keep=()):
     Returns the tokens chosen (B, gen + 1) and their top-2 margins, the
     logits of the positions in ``keep`` (0: the prefill's, t + 1: decode
     step t's; float32 on the CPU), whether every logit was finite, and the
-    seconds of the prefill and of each decode step, and the caches."""
+    seconds of the prefill and of each decode step, and the caches.  On a
+    mesh (``mdl.mcx``) the tokens, margins, logits and caches are the
+    rank's rows; ``feed`` is the whole batch's."""
     from repro_torch.models.model import pad_caches
     card = mdl.device.type == "cuda"
 
@@ -1760,7 +1785,7 @@ def serve_run(mdl, tokens, gen, feed=None, keep=()):
     logits, caches = mdl.prefill({"tokens": tokens.to(mdl.device)})
     t_prefill = clock() - t0
     S = tokens.shape[1]
-    caches = pad_caches(caches, S + gen)
+    caches = pad_caches(caches, S + gen, mdl.mcx)
     toks, margins, kept, finite, steps = [], [], {}, True, []
     for t in range(gen + 1):
         top2 = logits.topk(2, dim=-1).values
@@ -2127,7 +2152,7 @@ def kb_lm_path(name, make_cfg, facts, lubm_nfacts, lubm_stats):
     return rec, launches, tokens
 
 
-def full_width(name, cfg, shape, dropless=None, walk=False):
+def full_width(name, cfg, shape, dropless=None, walk=False, keep_run=None):
     """``cfg`` in bfloat16 on the card, random weights from seed 0: a cold
     prefill of ``shape``'s batch x prompt, then a warm one and ``gen``
     greedy tokens on padded caches, timed; the first decode step against
@@ -2135,7 +2160,9 @@ def full_width(name, cfg, shape, dropless=None, walk=False):
     profiled; with ``dropless``, a MoE model's decode against a
     re-prefill where no expert overflows (``dropless_vs_reprefill``); the
     peak memory.  With ``walk``, the profiled step once more under the cost
-    walk (``decode_step_count``, for phase 16).  Returns the record."""
+    walk (``decode_step_count``, for phase 16).  ``keep_run``, a dict, gets
+    the run's tokens, margins and kept logits (phase 17 holds its own run
+    to them).  Returns the record."""
     from repro_torch.models.model import build
     B, S, gen = shape["batch"], shape["prompt"], shape["gen"]
     torch.cuda.reset_peak_memory_stats()
@@ -2151,6 +2178,8 @@ def full_width(name, cfg, shape, dropless=None, walk=False):
     sync()
     t_cold = time.perf_counter() - t0
     run = serve_run(mdl, tokens, gen, keep=(0, 1))
+    if keep_run is not None:
+        keep_run.update({k: run[k] for k in ("tokens", "margins", "logits")})
     again = decode_vs_reprefill(mdl, tokens, run)
     last = run["tokens"][:, -1].cuda()
     caches = run.pop("caches")
@@ -2269,7 +2298,8 @@ def serve_phase(facts, lubm_nfacts, lubm_stats):
 
     # (b) stablelm_12b at full width and depth
     cfg = get_config("stablelm_12b")
-    full = full_width("stablelm_12b", cfg, FULL, walk=True)
+    full = full_width("stablelm_12b", cfg, FULL, walk=True,
+                      keep_run=FULL_RUN)
     again = full["decode_vs_reprefill"]
     if not (full["finite"] and again["rms_rel_err"] <= BF16_REL
             and again["kv_rms_rel_err"] <= BF16_REL
@@ -3065,9 +3095,10 @@ def train_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
     Each model is copied to the host and queued on a background thread
     (``cpu_job``) before the card's float32 steps, which keep their
     records on the card; the CPU works while the card runs the rest of
-    (d), (b)'s bfloat16 part and (c), and every comparison comes at the
-    end.
-    Returns the ``train`` record and (a)'s kernel launches."""
+    (d), (b)'s bfloat16 part and (c), and then phase 17.
+    Returns the comparisons as a callable (``_train_compare``), which waits
+    for the CPU and returns the ``train`` record and (a)'s kernel
+    launches."""
     import copy
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.configs.base import get_config
@@ -3156,8 +3187,18 @@ def train_phase(facts, lubm_nfacts, lubm_stats, tokens_12):
     out["kb_lm_bfloat16"] = bf16_train(cfg, copy.deepcopy(data),
                                        os.path.join(HERE, "build"))
     out["zamba2_1p2b"] = zamba_whole()
+    return functools.partial(
+        _train_compare, out, launches, jobs, pool, f32, init, lm, lm_s,
+        faults, zamba, zamba_s, zinit, falcon, falcon_s, f_peak,
+        falcon_fault, vjp, vjp_vs_flash)
 
-    # the CPU's records, and every comparison
+
+def _train_compare(out, launches, jobs, pool, f32, init, lm, lm_s, faults,
+                   zamba, zamba_s, zinit, falcon, falcon_s, f_peak,
+                   falcon_fault, vjp, vjp_vs_flash):
+    """Phase 15's end, once its CPU thread is done: the CPU's records, and
+    every comparison.  Returns the ``train`` record and the kernel
+    launches of phase 15's KB."""
     t0 = time.perf_counter()
     (lm_cpu, lm_cpu_s), (z_cpu, z_cpu_s), (s_cpu, s_cpu_s), \
         (f_cpu, f_cpu_s) = (job.result() for job in jobs)
@@ -3320,6 +3361,370 @@ def analysis_phase(largest, rows, fused_counts, served, trained,
                "profiled_busy_ms":
                    stable["decode_step_profile"]["device_busy_ms"],
                "peak_bytes": stable["peak_bytes"]}}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: serving on a mesh
+# ---------------------------------------------------------------------------
+# 2-layer float32 copies at full width (phases 12-13's), served as thread
+# ranks on the card, each against the same weights without a mesh: (name,
+# config overrides, meshes).  deepseek's copy is its first two layers, MLA
+# with the dense FFN (its MoE layer is 45 GB in float32; qwen3's copy
+# holds the MoE path).  The a2a dispatch changes which assignments
+# overflow (capacity per share), so it runs at capacity factor E / k, where
+# none do; psum keeps the whole batch's capacity and ranks, so its copy
+# keeps the config's
+MESH_2L = [("stablelm_12b", {}, ((1, 2), (1, 4))),
+           ("qwen3_moe_30b_a3b", {"moe_dispatch": "psum"}, ((1, 2), (1, 4))),
+           ("qwen3_moe_30b_a3b", {"moe_dispatch": "a2a",
+                                  "capacity_factor": 16.0},
+            ((1, 2), (1, 4), (2, 2))),
+           ("deepseek_v3_671b", {"num_dense_layers": 2}, ((1, 2), (1, 4)))]
+MESH_FAULT_AT = ("stablelm_12b", (1, 4))
+
+
+def merge_without_max(m, l, o, mcx):
+    """A planted fault: each rank's sums added as if its own row max were
+    the global one."""
+    return mcx.all_reduce(l), mcx.all_reduce(o)
+
+
+def write_outside_chunk(cache, new, pos, lo=0):
+    """A planted fault: every rank writes the new row, at ``pos`` clipped
+    into its own chunk."""
+    cache[:, min(max(pos - lo, 0), cache.shape[1] - 1)] = new
+
+
+MESH_FAULTS = {"merge_without_max": ("merge_over_ranks", merge_without_max),
+               "write_outside_chunk": ("write_row", write_outside_chunk)}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rms_rel(got, want) -> float:
+    """rms(got - want) / rms(want) over the finite entries of ``want`` (the
+    padded vocabulary rows are -1e30 in both)."""
+    keep = want > -1e29
+    return rms(got[keep] - want[keep]) / rms(want[keep])
+
+
+def mesh_against_plain(name, cfg, meshes, tokens, gen, faults=None):
+    """``cfg`` on the card without a mesh, then as thread ranks on each of
+    ``meshes`` from the same weights (seed 0), fed the plain run's tokens:
+    every rank's greedy tokens (its rows) equal, its logits at every step
+    and its chunk of every cache after the last step within ``F32_RMS`` in
+    rms.  ``faults``: planted faults run on the first mesh, each of which
+    must read above ``F32_RMS``.  Returns the record."""
+    import threading
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.model import build
+    keep = tuple(range(gen + 1))
+    mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    plain = serve_run(mdl, tokens, gen, keep=keep)
+    plain_s = time.perf_counter() - t0
+    plain["caches"] = {k: v.cpu() for k, v in plain.pop("caches").items()}
+    del mdl
+    torch.cuda.empty_cache()
+
+    building = threading.Lock()
+
+    def rank(mcx):
+        # one rank builds at a time: each draws every weight whole (the
+        # embedding of a 2-layer copy is most of it) before keeping its part
+        with building:
+            m = build(cfg, "cuda", torch.Generator(
+                device="cuda").manual_seed(0), mesh=mcx)
+        run = serve_run(m, tokens, gen, feed=plain["tokens"][:, :-1],
+                        keep=keep)
+        run["caches"] = {k: v.cpu() for k, v in run["caches"].items()}
+        return run
+
+    def held(dp, tp, runs):
+        worst, bad = 0.0, 0
+        B = tokens.shape[0]
+        for r, run in enumerate(runs):
+            d, m = divmod(r, tp)
+            rows = slice(d * B // dp, (d + 1) * B // dp) if B % dp == 0 \
+                else slice(0, B)
+            bad += int((run["tokens"] != plain["tokens"][rows]).sum())
+            for t in keep:
+                worst = max(worst, rms_rel(run["logits"][t],
+                                           plain["logits"][t][rows]))
+            for k, c in run["caches"].items():
+                whole = plain["caches"][k][:, rows]
+                n = c.shape[2]
+                worst = max(worst, rms_rel(
+                    c[:, :, :min(n, whole.shape[2] - m * n)],
+                    whole[:, :, m * n:(m + 1) * n]))
+        return worst, bad
+
+    rec = {"plain_s": plain_s, "meshes": {}}
+    for dp, tp in meshes:
+        t0 = time.perf_counter()
+        runs = make_host_mesh(dp, tp).run(rank)
+        secs = time.perf_counter() - t0
+        worst, bad = held(dp, tp, runs)
+        rec["meshes"][f"{dp}x{tp}"] = {
+            "rms_rel_err_worst": worst, "token_mismatches": bad,
+            "thread_ranks_s": secs,
+            "prefill_ms_rank0": runs[0]["prefill_s"] * 1e3,
+            "decode_ms_rank0": statistics.median(runs[0]["step_s"]) * 1e3}
+        del runs
+        torch.cuda.empty_cache()
+    for fault in faults or ():
+        attr, value = MESH_FAULTS[fault]
+        dp, tp = meshes[-1]
+        with Patched(layers, attr, value):
+            runs = make_host_mesh(dp, tp).run(rank)
+        rec[f"fault_{fault}_rms_rel_err"], _ = held(dp, tp, runs)
+        del runs
+        torch.cuda.empty_cache()
+    rec["ok"] = all(v["rms_rel_err_worst"] <= F32_RMS
+                    and v["token_mismatches"] == 0
+                    for v in rec["meshes"].values()) and all(
+        rec[f"fault_{f}_rms_rel_err"] > F32_RMS for f in faults or ())
+    log(f"[mesh] {name} {json.dumps(rec)}")
+    return rec
+
+
+def world_one_full_width(full_run) -> dict:
+    """(i) ``stablelm_12b``'s ``CONFIG`` at full width and depth in
+    bfloat16 through the process path: an in-process NCCL world of one
+    (``torch.distributed`` over tcp://localhost), its ``MeshCtx`` from
+    ``make_process_mesh``, phase 12's weights (seed 0) and prompts (seed
+    1), 8 x 2048 + 64 greedy tokens on padded caches.  Its tokens must be
+    phase 12's, its logits (prefill's and the first step's) within
+    ``BF16_REL`` of phase 12's in rms."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models.model import build
+    cfg = get_config("stablelm_12b")
+    B, S, gen = FULL["batch"], FULL["prompt"], FULL["gen"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mcx = MESH.make_mesh_ctx(MESH.make_process_mesh())
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        mdl = build(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0),
+                    mesh=mcx)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(1))
+        mdl.prefill({"tokens": tokens})          # warm
+        run = serve_run(mdl, tokens, gen, keep=(0, 1))
+        del mdl, tokens
+        run.pop("caches")
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rels = [rms_rel(run["logits"][t], full_run["logits"][t]) for t in (0, 1)]
+    rec = {**FULL, "mesh": [1, 1], "backend": "nccl",
+           "token_mismatches": int((run["tokens"]
+                                    != full_run["tokens"]).sum()),
+           "logits_rms_rel_err": rels, "tol_rms_rel": BF16_REL,
+           "finite": run["finite"], **timing(run, B),
+           "held_before_bytes": held_before,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    rec["ok"] = rec["token_mismatches"] == 0 and run["finite"] and \
+        max(rels) <= BF16_REL
+    log(f"[mesh] stablelm_12b world 1 {json.dumps(rec)}")
+    return rec
+
+
+def start_torchrun(args, nproc, out_dir):
+    """``torchrun --standalone --nproc-per-node=nproc`` of ``args`` (a
+    module's or a script's), started in the background with the
+    repository's ``src`` on the path, its output in ``out_dir``.  Returns
+    the handle for ``end_torchrun``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = open(os.path.join(out_dir, "torchrun.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                             "--standalone", f"--nproc-per-node={nproc}",
+                             *args], cwd=HERE, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter(), args
+
+
+def end_torchrun(handle, timeout=900):
+    """Waits for a ``start_torchrun`` run; fails unless it exits 0.
+    Returns (its output, its seconds)."""
+    proc, out, t0, args = handle
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    secs = time.perf_counter() - t0
+    with open(out.name) as f:
+        text = f.read()
+    if proc.returncode:
+        fail(f"torchrun {' '.join(args)}: exit {proc.returncode}\n"
+             f"{text[-4000:]}")
+    return text, secs
+
+
+def start_launcher(tmp):
+    """(ii) started: ``launch/serve.py --smoke`` under ``torchrun`` with a
+    process per card, in the background."""
+    out = os.path.join(tmp, "serve_tokens.npy")
+    return start_torchrun(["-m", "repro_torch.launch.serve", "--arch",
+                           "stablelm_12b", "--smoke", "--out", out],
+                          torch.cuda.device_count(), tmp), out
+
+
+def launcher_check(started) -> dict:
+    """(ii) ended: the launcher's tokens must equal the same run in this
+    process (thread ranks on one card where there are several)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    handle, out = started
+    n = torch.cuda.device_count()
+    cfg = get_smoke_config("stablelm_12b")
+    if n == 1:
+        here = serve.serve(cfg, device="cuda")[0]
+    else:
+        here = make_host_mesh(1, n).run(
+            lambda mcx: serve.serve(cfg, device="cuda", mesh=mcx)[0])[0]
+    stdout, secs = end_torchrun(handle)
+    got = np.load(out)
+    rec = {"nproc": n, "torchrun_s": secs,
+           "lines": [ln for ln in stdout.splitlines()
+                     if ln.startswith("[serve]")],
+           "token_mismatches": int((got != here).sum()),
+           "tokens": list(got.shape)}
+    rec["ok"] = rec["token_mismatches"] == 0
+    log(f"[mesh] launcher {json.dumps(rec)}")
+    return rec
+
+
+def mesh_child(out_dir: str) -> int:
+    """``torchrun ... chip_smoke.py --mesh-child DIR``: one rank of (i) at
+    tp = the card count, fed phase 12's tokens (``DIR/feed.npy``); rank 0
+    saves its tokens, kept logits and timing in DIR."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models.model import build
+    MESH.init_process_group()
+    mcx = MESH.make_mesh_ctx(MESH.make_process_mesh())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("stablelm_12b")
+    torch.cuda.reset_peak_memory_stats()
+    mdl = build(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                mesh=mcx)
+    tokens = torch.randint(0, cfg.vocab_size, (FULL["batch"], FULL["prompt"]),
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(1))
+    feed = torch.from_numpy(np.load(os.path.join(out_dir, "feed.npy")))
+    mdl.prefill({"tokens": tokens})          # warm
+    run = serve_run(mdl, tokens, FULL["gen"], feed=feed.to(dev),
+                    keep=(0, 1))
+    if mcx.rank == 0:
+        with open(os.path.join(out_dir, "timing.json"), "w") as f:
+            json.dump({**timing(run, FULL["batch"]),
+                       "peak_bytes_rank0": torch.cuda.max_memory_allocated()},
+                      f)
+        np.save(os.path.join(out_dir, "tokens.npy"), run["tokens"].numpy())
+        for t in (0, 1):
+            np.save(os.path.join(out_dir, f"logits{t}.npy"),
+                    run["logits"][t].numpy())
+    dist.destroy_process_group()
+    return 0
+
+
+def several_cards(full_run, tmp) -> dict:
+    """(i) at tp = the card count, one process per card over NCCL
+    (``mesh_child``), fed phase 12's tokens: logits within ``BF16_REL`` of
+    phase 12's in rms.  The greedy tokens that differ are counted, not
+    held: bfloat16 partial sums added in another order (each rank's
+    rounded before the all-reduce) move the logits by about 0.07 in rms
+    on 4 cards, and a token whose top-2 margin is below that flips."""
+    n = torch.cuda.device_count()
+    np.save(os.path.join(tmp, "feed.npy"),
+            full_run["tokens"][:, :-1].numpy())
+    _, secs = end_torchrun(start_torchrun(
+        [os.path.join(HERE, "chip_smoke.py"), "--mesh-child", tmp], n, tmp))
+    got = torch.from_numpy(np.load(os.path.join(tmp, "tokens.npy")))
+    sure = full_run["margins"] > 0.05
+    rels = [rms_rel(torch.from_numpy(np.load(os.path.join(
+        tmp, f"logits{t}.npy"))), full_run["logits"][t]) for t in (0, 1)]
+    with open(os.path.join(tmp, "timing.json")) as f:
+        timed_run = json.load(f)
+    rec = {"tp": n, "torchrun_s": secs, "logits_rms_rel_err": rels,
+           "tol_rms_rel": BF16_REL, "token_mismatches_margin_above_0.05":
+           int((got[sure] != full_run["tokens"][sure]).sum()),
+           "tokens_compared": int(sure.sum()), **timed_run}
+    rec["ok"] = max(rels) <= BF16_REL
+    log(f"[mesh] stablelm_12b tp {n} {json.dumps(rec)}")
+    return rec
+
+
+def mesh_phase(full_run) -> dict:
+    """Phase 17.  (i) ``world_one_full_width``; (ii) ``launcher_check``;
+    (iii) the ``MESH_2L`` copies as thread ranks on the card
+    (``mesh_against_plain``, 2 x 1040 + 4, float32, TF32 off), with the
+    ``MESH_FAULTS`` planted at ``MESH_FAULT_AT``; where there are several
+    cards, (i) again at tp = the card count (``several_cards``).  Returns
+    the ``mesh`` record."""
+    from repro_torch.configs.base import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_",
+                           dir=os.path.join(HERE, "build"))
+    out, launcher = {}, None
+    try:
+        launcher = start_launcher(tmp)         # beside (i) and (iii)
+        out["world_one"] = world_one_full_width(full_run)
+        shape = FULL_CPU
+        out["thread_ranks"] = {}
+        for name, overrides, meshes in MESH_2L:
+            cfg = get_config(name).with_(num_layers=2, dtype="float32",
+                                         **overrides)
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (shape["batch"], shape["prompt"]),
+                                   device="cuda", generator=torch.Generator(
+                                       device="cuda").manual_seed(2))
+            faults = tuple(MESH_FAULTS) \
+                if (name, meshes[-1]) == MESH_FAULT_AT else ()
+            key = name + ("_" + overrides["moe_dispatch"]
+                          if "moe_dispatch" in overrides else "")
+            out["thread_ranks"][key] = {
+                **shape, "overrides": overrides,
+                **mesh_against_plain(key, cfg, meshes, tokens, shape["gen"],
+                                     faults)}
+        out["launcher"] = launcher_check(launcher)
+        n = torch.cuda.device_count()
+        if n >= 2:
+            out["several_cards"] = several_cards(full_run, tmp)
+        else:
+            out["several_cards"] = f"the card count was {n}"
+            log(f"[mesh] the card count was {n}: (i) at one card only")
+    finally:
+        if launcher is not None and launcher[0][0].poll() is None:
+            launcher[0][0].kill()
+            launcher[0][0].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = {k: out[k]["ok"] for k in ("world_one", "launcher")}
+    checks.update({k: v["ok"] for k, v in out["thread_ranks"].items()})
+    if isinstance(out["several_cards"], dict):
+        checks["several_cards"] = out["several_cards"]["ok"]
+    if not all(checks.values()):
+        fail(f"mesh: {checks}")
     return out
 
 
@@ -3624,13 +4029,34 @@ def main() -> int:
     # 2-layer float32 copies card against CPU
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    trained, launches_train = train_phase(facts, lubm_nfacts, lubm_stats,
-                                          tokens_12)
+    train_compare = train_phase(facts, lubm_nfacts, lubm_stats, tokens_12)
     del tokens_12
+    t_train = time.perf_counter() - t0
+
+    # 17. serving on a mesh, on the card while phase 15's CPU side works:
+    # an NCCL world of one at full width, the launcher under torchrun, and
+    # thread ranks of 2-layer float32 copies against the plain runs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    KO.reset_launch_counts()
+    meshed = mesh_phase(FULL_RUN)
+    launches_mesh = KO.launch_counts()
+    meshed["s"] = time.perf_counter() - t0
+    FULL_RUN.clear()
+    for r in rows:
+        r["launches_mesh"] = launches_mesh.get(r["name"], 0)
+        r["launches"] += r["launches_mesh"]
+    log(f"[mesh] {meshed['s']:.1f} s; launches {launches_mesh} (the mesh "
+        f"path has no kernel of its own)")
+
+    t0 = time.perf_counter()
+    trained, launches_train = train_compare()
+    del train_compare
+    t_train += time.perf_counter() - t0
     for r in rows:
         r["launches_train"] = launches_train.get(r["name"], 0)
         r["launches"] += r["launches_train"]
-    log(f"[train] {time.perf_counter() - t0:.1f} s; launches "
+    log(f"[train] {t_train:.1f} s beside phase 17; launches "
         f"{launches_train}")
     if any(launches_train[k] == 0 for k in KERNELS):
         fail(f"a kernel was never launched on the KB->training path: "
@@ -3658,6 +4084,7 @@ def main() -> int:
     print(json.dumps({"serve_ssm": {**served_ssm, "card": smi}}))
     print(json.dumps({"train": {**trained, "card": smi}}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"mesh": {**meshed, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3671,4 +4098,6 @@ if __name__ == "__main__":
         sys.exit(child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--fused-cpu"]:
         sys.exit(fused_cpu_cold(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
     sys.exit(main())

@@ -1360,8 +1360,9 @@ def lower_distributed_tc(ndev: int, cfg: DistConfig = DistConfig(),
     + planned join + canonical-home absorb) at ``cfg``'s per-shard
     capacities, for ``ndev`` lockstep shards on one device (the card
     unless the caller names one).  The reference lowers the round on a
-    target mesh; the port has no mesh until ROADMAP Queue 1 item 12
-    (several cards), so it takes ``ndev``.
+    target mesh; the port's sharded executor runs its shards in lockstep
+    on one device (shards on several cards are ROADMAP follow-up 5), so it
+    takes ``ndev``.
 
     Returns ``repro_torch.analysis.cost.walk``'s record of the round
     program (its memory included), run once on PAD blocks (the TC round's

@@ -1,9 +1,15 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
-[--smoke] [--device cpu]``.
+[--smoke] [--device cpu] [--out FILE]``, or on N cards ``torchrun
+--nproc-per-node N -m repro_torch.launch.serve --arch <id>``.
 
 Prefill + batched greedy decode, as ``python -m repro.launch.serve``: the
 same arguments, the same refusal of encoder-only configurations and the
-same output lines.  As there, the K/V caches are as long as the prompt,
+same output lines.  Under ``torchrun`` every process is one
+tensor-parallel rank of a 1 x N mesh (the reference's ``make_host_mesh(dp=1,
+tp=jax.device_count())``), on the card of its ``LOCAL_RANK`` over NCCL, or
+over gloo with ``--device cpu``; rank 0 prints.  Without ``torchrun`` the
+world is one process and the model is not on a mesh.  ``--out`` saves the
+generated tokens (rank 0's, numpy).  As there, the K/V caches are as long as the prompt,
 so each generated token's cache row is not written and it attends to the
 prompt only (``gqa_decode_attention``, ``mla_decode_attention``; zamba2's
 shared attention block keeps that contract too).  The Mamba states of the
@@ -12,6 +18,7 @@ length: each decode step advances them.  Runs on the card unless
 ``--device`` names another device.
 """
 import argparse
+import os
 import time
 
 import numpy as np
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.engine.relation import resolve_device
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import model as M
 
 
@@ -28,13 +36,16 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(cfg, batch: int = 4, prompt_len: int = 32, gen: int = 32,
-          device=None):
+          device=None, mesh=None):
     """Random weights (seed 0) and prompts (seed 1), prefill and ``gen - 1``
-    decode steps.  Returns (generated tokens (B, gen), prefill s, decode s)."""
+    decode steps; on a mesh (``mesh``, this rank's ``MeshCtx``) the rank's
+    part of the model, every rank given the same prompts.  Returns
+    (generated tokens (B, gen), prefill s, decode s)."""
     if cfg.is_encoder:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
     dev = resolve_device(device)
-    mdl = M.build(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    mdl = M.build(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                  mesh=mesh)
     g = torch.Generator(device=dev).manual_seed(1)
     B, S = batch, prompt_len
     if cfg.input_mode == "embeddings":
@@ -72,15 +83,32 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--out", default=None,
+                    help="save the generated tokens here (numpy)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    gen, t_prefill, t_decode = serve(cfg, args.batch, args.prompt_len,
-                                     args.gen, args.device)
+    dev, mesh = resolve_device(args.device), None
+    if "WORLD_SIZE" in os.environ:        # started by torchrun
+        MESH.init_process_group(device=dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = MESH.make_mesh_ctx(MESH.make_process_mesh())
+    try:
+        gen, t_prefill, t_decode = serve(cfg, args.batch, args.prompt_len,
+                                         args.gen, dev, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if mesh is not None and mesh.rank != 0:
+        return
     B, S = args.batch, args.prompt_len
     print(f"[serve] {cfg.name}: prefill({B}x{S})={t_prefill*1e3:.0f}ms  "
           f"decode {args.gen} toks: {t_decode/max(args.gen-1,1)*1e3:.1f}ms/tok")
     print(f"[serve] sample: {gen[0][:16]}")
+    if args.out:
+        np.save(args.out, gen)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ chosen architecture (weights from seed 0), ``SyntheticTokens`` of its
 vocabulary, and the fault-tolerant loop (checkpoint, resume, preemption).
 Runs on the card unless ``--device`` names another device.  The
 reference's ``--simulate-pod``, ``--multi-pod`` and ``--tpu-flags`` shape
-a TPU mesh: they are ROADMAP Queue 1 item 12 (several cards) and raise.
+a TPU mesh: they are ROADMAP Queue 1 item 12's training half (several
+cards) and raise, as does a model built for training on a mesh.
 """
 import argparse
 
@@ -41,7 +42,7 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")):
             raise NotImplementedError(
                 f"{flag} shapes a TPU mesh: ROADMAP Queue 1 item 12 "
-                f"(several cards)")
+                f"(several cards), its training half")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)

@@ -2,9 +2,28 @@
 attention and its binary-tree causal form, one-token decode attention over
 a KV cache, and MLA (multi-head latent attention) with its latent cache.
 
-Counterpart of ``repro.models.layers`` on one device: there is no mesh, so
-the tensor-parallel degree is 1 and ``pad_to(H, 1) == H``.  Flags that only
-change sharding (``explicit_tp``, ``zero1``, ``fsdp``) leave this forward
+Counterpart of ``repro.models.layers``.  Without a mesh (``mcx=None``)
+each function runs whole on one device.  With a ``MeshCtx``
+(``repro_torch.launch.mesh``) it runs one rank's part of the reference's
+sharded program, on that rank's slice of the weights
+(``models.model.split_dim``):
+
+* query heads are padded to a multiple of the tensor-parallel degree tp
+  (zero rows in ``wq``, ``bq`` and ``wo``) and split over "model"; K/V
+  heads are split where tp divides their count, else every rank holds all;
+  prefill attention runs on the rank's heads, and the output projection is
+  row-parallel, then an all-reduce over "model";
+* the MLP is column-parallel in ``w_gate`` / ``w_up`` / ``b_up`` and
+  row-parallel in ``w_down``, then an all-reduce.  ``explicit_tp`` (the
+  reference's ``shard_map`` wrappers ``tp_col_einsum`` / ``tp_row_einsum``
+  / ``_apply_mlp_explicit_tp``) computes the same function as GSPMD's
+  layout there, so the port has this one path for both settings;
+* decode keeps the cache split over the sequence across "model": each rank
+  writes the new row only where ``pos`` falls in its chunk, attends over
+  its chunk with every head (gathered), and the ranks merge by
+  log-sum-exp (``merge_over_ranks``) before the row-parallel ``wo``.
+
+Flags that only change sharding (``zero1``, ``fsdp``) leave the forward
 pass as it is.  ``flash_vjp`` runs training and prefill attention through
 ``flash_attention_vjp``, whose backward recomputes the probabilities block
 by block from the saved ``(q, k, v, out, m, l)``; without it autograd
@@ -19,6 +38,7 @@ probability-value product accumulate in float32 from the weights' dtype
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +54,62 @@ def pad_to(n: int, m: int) -> int:
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config's ``dtype`` name."""
     return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# the mesh: which dims a rank holds a slice of, and the decode's merge
+# ---------------------------------------------------------------------------
+def tp_of(mcx) -> int:
+    return 1 if mcx is None else mcx.tp_size
+
+
+def splits(n: int, mcx) -> bool:
+    """Whether a dim of full size ``n`` is split over "model" (the
+    reference's ``fits``: tp divides it)."""
+    return mcx is not None and n % mcx.tp_size == 0
+
+
+def local_part(t, dim: int, mcx):
+    """The rank's slice of ``t`` (whole) along ``dim`` over "model"."""
+    n = t.shape[dim] // mcx.tp_size
+    return t.narrow(dim, mcx.model_index * n, n)
+
+
+def merge_over_ranks(m, l, o, mcx):
+    """The log-sum-exp merge of the ranks' partial attention over their
+    sequence chunks (the reference's ``pmax`` / ``psum`` pair): m, l (...)
+    the row max and sum, o (..., D) the unnormalised output.  A rank whose
+    chunk holds no visible position has m = -1e30, so its correction is 0
+    and it adds nothing.  At tp = 1 every correction is exp(0) = 1: the
+    callers skip it there."""
+    m_g = mcx.all_reduce(m, op="max")
+    corr = torch.exp(m - m_g)
+    return mcx.all_reduce(l * corr), mcx.all_reduce(o * corr[..., None])
+
+
+def write_row(cache, new, pos: int, lo: int = 0) -> None:
+    """The decode step's new cache row at global position ``pos``, written
+    in place into ``cache`` (B, S_loc, ...), the chunk that starts at
+    ``lo``, only where ``pos`` falls in it."""
+    if 0 <= pos - lo < cache.shape[1]:
+        cache[:, pos - lo] = new
+
+
+def seq_split(t, mcx, head_dim: Optional[int] = None):
+    """Prefill's cache rows t (B, S, ...) handed to the rank's sequence
+    chunk (B, ceil(S / tp), ...), zero-padded past S.  Where t holds only
+    the rank's heads along ``head_dim``, one all-to-all over "model" moves
+    every rank's heads of each chunk to the chunk's owner; otherwise the
+    rank slices its chunk."""
+    tp, S = mcx.tp_size, t.shape[1]
+    S_loc = -(-S // tp)
+    if S_loc * tp != S:
+        t = pad_seq(t, S_loc * tp - S)
+    if head_dim is None:
+        return t[:, mcx.model_index * S_loc:(mcx.model_index + 1) * S_loc]
+    chunks = t.unflatten(1, (tp, S_loc)).movedim(1, 0)   # (tp, B, S_loc, ..)
+    got = mcx.all_to_all(chunks)                         # by source rank
+    return torch.cat(got.unbind(0), dim=head_dim)
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -111,7 +187,11 @@ def init_mlp(cfg, generator, d_ff=None) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
-def apply_mlp(p, x, cfg):
+def apply_mlp(p, x, cfg, mcx=None, d_ff=None):
+    """The MLP of width ``d_ff`` (``cfg.d_ff`` by default).  On a mesh
+    whose tp divides the width, the rank holds columns of ``w_gate`` /
+    ``w_up`` / ``b_up`` and rows of ``w_down``, and the partial outputs
+    are summed over "model" before ``b_down``."""
     if cfg.mlp_type == "swiglu":
         g = torch.einsum("...d,df->...f", x, p["w_gate"])
         u = torch.einsum("...d,df->...f", x, p["w_up"])
@@ -125,6 +205,8 @@ def apply_mlp(p, x, cfg):
         else:
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     y = torch.einsum("...f,fd->...d", h, p["w_down"])
+    if splits(d_ff or cfg.d_ff, mcx):
+        y = mcx.all_reduce(y)
     if "b_down" in p:
         y = y + p["b_down"]
     return y
@@ -351,14 +433,29 @@ def repeat_kv(x, h_out: int):
         B, S, h_out, D)
 
 
-def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
-    """Prefill attention.  x: (B,S,d)."""
-    H = cfg.num_heads
+def _kv_bias(p, name, kv_split, mcx):
+    """A K/V bias (replicated over "model") for the K/V heads the rank
+    computes."""
+    return local_part(p[name], 0, mcx) if kv_split else p[name]
+
+
+def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False,
+                  mcx=None):
+    """Prefill attention.  x: (B,S,d).  On a mesh, over the rank's query
+    heads (of H padded to a multiple of tp), with the K/V heads they read:
+    the rank's own where tp divides KV, else every K/V head repeated to
+    the padded H and cut to the rank's; then ``wo`` row-parallel and an
+    all-reduce over "model".  With ``return_kv`` also the cache rows (k,
+    v) (B,S,KV_l,hd), KV_l the K/V heads the rank computed."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    kv_split = splits(KV, mcx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+        k = k + _kv_bias(p, "bk", kv_split, mcx)
+        v = v + _kv_bias(p, "bv", kv_split, mcx)
     if "q_norm" in p:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])
@@ -366,7 +463,12 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     kv_cache = (k, v) if return_kv else None
-    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    if mcx is None or kv_split:
+        k, v = repeat_kv(k, q.shape[2]), repeat_kv(v, q.shape[2])
+    else:
+        Hp = pad_to(H, mcx.tp_size)
+        k = local_part(repeat_kv(k, Hp), 2, mcx)
+        v = local_part(repeat_kv(v, Hp), 2, mcx)
     if causal and cfg.causal_tree_attn:
         out = causal_tree_attention(q, k, v, chunk=cfg.attn_chunk)
     elif cfg.flash_vjp:
@@ -375,6 +477,8 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
     else:
         out = flash_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if mcx is not None:
+        y = mcx.all_reduce(y)
     if "bo" in p:
         y = y + p["bo"]
     if return_kv:
@@ -385,15 +489,21 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False):
 # ---------------------------------------------------------------------------
 # GQA decode attention over a KV cache
 # ---------------------------------------------------------------------------
-def gqa_decode_attention(p, x, cache, pos: int, cfg):
-    """One-token decode.  x: (B,1,d); cache: dict(k, v) of (B,S,KV,hd).
+def gqa_decode_attention(p, x, cache, pos: int, cfg, mcx=None):
+    """One-token decode.  x: (B,1,d); cache: dict(k, v) of (B,S,KV,hd),
+    on a mesh the rank's chunk of the sequence (S / tp positions from
+    ``model_index * S / tp``).
 
-    The reference's sequence-sharded attention with its log-sum-exp merge,
-    at one shard.  As there, the new token's K/V is written into the cache
-    (in place here) only where ``pos < S``, and the token attends to the
-    positions ``<= pos``.  Returns (y (B,1,d), cache)."""
+    The reference's sequence-sharded attention with its log-sum-exp merge:
+    the new token's K/V is written into the cache (in place here) only by
+    the rank whose chunk holds ``pos``, and the token attends to the
+    positions ``<= pos``.  On a mesh the rank computes its query heads and
+    K/V heads, gathers every head over "model", attends over its chunk,
+    merges (``merge_over_ranks``) and applies ``wo`` row-parallel, then an
+    all-reduce.  Returns (y (B,1,d), cache)."""
     B = x.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    kv_split = splits(KV, mcx)
     ck, cv = cache["k"], cache["v"]
     S = ck.shape[1]
     x0 = x[:, 0]
@@ -401,7 +511,9 @@ def gqa_decode_attention(p, x, cache, pos: int, cfg):
     k_new = torch.einsum("bd,dhk->bhk", x0, p["wk"])
     v_new = torch.einsum("bd,dhk->bhk", x0, p["wv"])
     if "bq" in p:
-        q, k_new, v_new = q + p["bq"], k_new + p["bk"], v_new + p["bv"]
+        q = q + p["bq"]
+        k_new = k_new + _kv_bias(p, "bk", kv_split, mcx)
+        v_new = v_new + _kv_bias(p, "bv", kv_split, mcx)
     if "q_norm" in p:
         q = _qk_norm(q, p["q_norm"])
         k_new = _qk_norm(k_new, p["k_norm"])
@@ -409,19 +521,31 @@ def gqa_decode_attention(p, x, cache, pos: int, cfg):
         at = torch.full((B, 1), pos, device=x.device)
         q = apply_rope(q[:, None], at, cfg.rope_theta)[:, 0]
         k_new = apply_rope(k_new[:, None], at, cfg.rope_theta)[:, 0]
-    if 0 <= pos < S:
-        ck[:, pos] = k_new
-        cv[:, pos] = v_new
+    lo = 0
+    if mcx is not None:
+        q = mcx.all_gather(q, 1)
+        if kv_split:
+            k_new, v_new = mcx.all_gather(k_new, 1), mcx.all_gather(v_new, 1)
+        lo = mcx.model_index * S
+    H = q.shape[1]
+    write_row(ck, k_new, pos, lo)
+    write_row(cv, v_new, pos, lo)
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) / math.sqrt(hd)
-    valid = torch.arange(S, device=x.device) <= pos
+    valid = lo + torch.arange(S, device=x.device) <= pos
     s = torch.where(valid, s, -1e30)
     m = s.amax(-1)
     pr = torch.exp(s - m[..., None])
     l = pr.sum(-1)
     o = torch.einsum("bkgs,bskd->bkgd", pr.to(cv.dtype).float(), cv.float())
+    if tp_of(mcx) > 1:
+        l, o = merge_over_ranks(m, l, o, mcx)
     out = (o / l.clamp_min(1e-30)[..., None]).to(q.dtype).reshape(B, H, hd)
+    if mcx is not None:
+        out = local_part(out, 1, mcx)
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])
+    if mcx is not None:
+        y = mcx.all_reduce(y)
     if "bo" in p:
         y = y + p["bo"]
     return y[:, None], {"k": ck, "v": cv}
@@ -450,18 +574,21 @@ def init_mla(cfg, generator) -> nn.ParameterDict:
 _rms = _qk_norm     # the reference's name for the latents' RMS norm
 
 
-def mla_fwd(p, x, cfg, *, positions, return_kv=False):
+def mla_fwd(p, x, cfg, *, positions, return_kv=False, mcx=None):
     """MLA prefill, the non-absorbed form: per-head keys and values are
     expanded from the latent and go through ``flash_attention`` (or
     ``flash_attention_vjp`` under ``flash_vjp``) with the RoPE part of the
-    key shared by every head.  x: (B,S,d).  With
-    ``return_kv`` also returns the cache rows (c_kv (B,S,kvr), k_rope
-    (B,S,dr))."""
+    key shared by every head.  x: (B,S,d).  On a mesh whose tp divides the
+    heads, over the rank's heads, ``wo`` row-parallel and an all-reduce
+    over "model" (else every rank runs every head).  With ``return_kv``
+    also returns the cache rows (c_kv (B,S,kvr), k_rope (B,S,dr)), whole
+    on every rank."""
     B, S, _ = x.shape
-    H, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     kvr = cfg.kv_lora_rank
     q_lat = _rms(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_a_norm"])
     q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])   # (B,S,H,dn+dr)
+    H = q.shape[2]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])     # (B,S,kvr+dr)
     c_kv = _rms(kv_a[..., :kvr], p["kv_a_norm"])
@@ -473,24 +600,31 @@ def mla_fwd(p, x, cfg, *, positions, return_kv=False):
     attend = flash_attention_vjp if cfg.flash_vjp else flash_attention
     out = attend(q_full, k_full, v, causal=True, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if splits(cfg.num_heads, mcx):
+        y = mcx.all_reduce(y)
     if return_kv:
         return y, (c_kv, k_rope[:, :, 0])
     return y
 
 
-def mla_decode_attention(p, x, cache, pos: int, cfg):
+def mla_decode_attention(p, x, cache, pos: int, cfg, mcx=None):
     """One-token MLA decode, the absorbed form: the query's non-RoPE part
     is taken into the latent space through ``wk_b``, scores are taken
     against the latent cache plus the RoPE keys, and the context, taken in
     latent space, goes back out through ``wv_b`` and ``wo``.  x: (B,1,d);
-    cache {"c_kv": (B,S,kvr), "k_rope": (B,S,dr)}.
+    cache {"c_kv": (B,S,kvr), "k_rope": (B,S,dr)}, on a mesh the rank's
+    chunk of the sequence.
 
-    The reference's sequence-sharded body at one shard: the token's
-    latent and RoPE key are written into the cache (in place) only where
-    ``0 <= pos < S``, and the token attends to the positions ``<= pos``.
-    Returns (y (B,1,d), cache)."""
+    The reference's sequence-sharded body: the token's latent and RoPE key
+    are written into the cache (in place) only by the rank whose chunk
+    holds ``pos``, and the token attends to the positions ``<= pos``.  On
+    a mesh whose tp divides the heads the rank absorbs its heads' queries
+    and gathers every head over "model"; the ranks merge by log-sum-exp,
+    and each takes its heads' context out through ``wv_b`` and ``wo``,
+    then an all-reduce.  Returns (y (B,1,d), cache)."""
     B = x.shape[0]
     dn, dr, kvr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    heads_split = splits(cfg.num_heads, mcx)
     cc, ckr = cache["c_kv"], cache["k_rope"]
     S = cc.shape[1]
     x0 = x[:, 0]
@@ -503,18 +637,28 @@ def mla_decode_attention(p, x, cache, pos: int, cfg):
     c_new = _rms(kv_a[..., :kvr], p["kv_a_norm"])
     kr_new = apply_rope(kv_a[:, None, None, kvr:], at,
                         cfg.rope_theta)[:, 0, 0]
-    if 0 <= pos < S:
-        cc[:, pos] = c_new
-        ckr[:, pos] = kr_new
+    lo = 0
+    if mcx is not None:
+        if heads_split:
+            q_abs, q_rope = mcx.all_gather(q_abs, 1), mcx.all_gather(q_rope, 1)
+        lo = mcx.model_index * S
+    write_row(cc, c_new, pos, lo)
+    write_row(ckr, kr_new, pos, lo)
     s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), cc.float())
          + torch.einsum("bhk,bsk->bhs", q_rope.float(), ckr.float()))
     s = s / math.sqrt(dn + dr)
-    s = torch.where(torch.arange(S, device=x.device) <= pos, s, -1e30)
+    s = torch.where(lo + torch.arange(S, device=x.device) <= pos, s, -1e30)
     m = s.amax(-1)
     pr = torch.exp(s - m[..., None])
     l = pr.sum(-1)
     ctx = torch.einsum("bhs,bsr->bhr", pr.to(cc.dtype).float(), cc.float())
+    if tp_of(mcx) > 1:
+        l, ctx = merge_over_ranks(m, l, ctx, mcx)
     ctx = (ctx / l.clamp_min(1e-30)[..., None]).to(q_abs.dtype)
+    if heads_split:
+        ctx = local_part(ctx, 1, mcx)
     out = torch.einsum("bhr,rhk->bhk", ctx, p["wv_b"])
     y = torch.einsum("bhk,hkd->bd", out, p["wo"])
+    if heads_split:
+        y = mcx.all_reduce(y)
     return y[:, None], {"c_kv": cc, "k_rope": ckr}

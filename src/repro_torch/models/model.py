@@ -35,17 +35,29 @@ from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as OPT
 
 
-def embed(tokens, table):
-    """tokens (B,S) ints; table (V,d) -> (B,S,d): a plain gather (the
-    reference's vocab-parallel gather at one device)."""
-    return table[tokens]
+def embed(tokens, table, mcx=None):
+    """tokens (B,S) ints; table (V,d) -> (B,S,d).  With ``mcx`` the table
+    is the rank's rows of a vocabulary split over "model": a masked local
+    gather, then an all-reduce (the reference's vocab-parallel gather);
+    without, a plain gather of a whole table."""
+    if mcx is None:
+        return table[tokens]
+    V_loc = table.shape[0]
+    idx = tokens - mcx.model_index * V_loc
+    ok = (idx >= 0) & (idx < V_loc)
+    x = torch.where(ok[..., None], table[idx.clamp(0, V_loc - 1)], 0)
+    return mcx.all_reduce(x)
 
 
-def logits_fn(h, unemb_t, cfg):
+def logits_fn(h, unemb_t, cfg, mcx=None):
     """Full logits for the last position (h: (B,1,d)) -> (B,V) float32,
-    padded vocabulary rows at -1e30."""
+    padded vocabulary rows at -1e30.  With ``mcx`` unemb_t is the rank's
+    vocabulary rows: their logits, gathered along the vocabulary over
+    "model"."""
     logits = torch.einsum("bsd,vd->bsv", h.float(), unemb_t.float())
-    pad = torch.arange(unemb_t.shape[0], device=h.device) >= cfg.vocab_size
+    if mcx is not None:
+        logits = mcx.all_gather(logits, 2)
+    pad = torch.arange(logits.shape[2], device=h.device) >= cfg.vocab_size
     return torch.where(pad, -1e30, logits[:, 0])
 
 
@@ -94,12 +106,19 @@ def ce_loss(h, unemb_t, targets, mask, cfg):
     return total, mask.sum()
 
 
+def _batch_rows(batch) -> int:
+    return len(batch["tokens"] if "tokens" in batch else batch["embeddings"])
+
+
 class Model(nn.Module):
-    """A decoder (or encoder) LM on one device."""
+    """A decoder (or encoder) LM on one device, or one rank's part of it on
+    a mesh (``mesh``, a ``MeshCtx``): the rank's slice of every weight
+    (``split_dim``), its rows of each batch and its chunk of each cache's
+    sequence."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None,
-                 training: bool = False):
+                 training: bool = False, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
@@ -107,10 +126,30 @@ class Model(nn.Module):
         elif generator.device != dev:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{dev}")
+        if mesh is not None and mesh.size > 1 and training:
+            raise NotImplementedError(f"training on a mesh is {_ITEM_12}")
+        if mesh is not None and mesh.tp_size > 1 and \
+                cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.family} layers at tp > 1 (Mamba's d_inner split, the "
+                f"hybrid's cache on a mesh) are {_ITEM_12}")
         self.cfg = cfg
+        self.mcx = mesh
         self.opt_cfg = OPT.OptConfig(grad_compress=cfg.grad_compress)
         self.for_training = training
-        params = T.init_stack(cfg, generator, mtp=training)
+        keep = experts = None
+        if mesh is not None and mesh.tp_size > 1:
+            if cfg.num_experts and L.splits(cfg.num_experts, mesh):
+                n = cfg.num_experts // mesh.tp_size
+                experts = range(mesh.model_index * n,
+                                (mesh.model_index + 1) * n)
+
+            def keep(name, t):
+                if experts is not None and _routed_expert(name):
+                    return t            # drawn as the rank's experts only
+                return shard_leaf(name, t, cfg, mesh)
+        params = T.init_stack(cfg, generator, mtp=training, keep=keep,
+                              experts=experts)
         self.emb = params["emb"]
         if "unemb" in params:
             self.unemb = params["unemb"]
@@ -125,55 +164,88 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.emb.device
 
-    def _embed_inputs(self, batch):
+    @property
+    def _vocab_mcx(self):
+        """The mesh context where the vocabulary is split over "model"
+        (tp divides the padded vocabulary), else None (a whole table)."""
+        V = L.pad_to(self.cfg.vocab_size, 256)
+        return self.mcx if L.splits(V, self.mcx) else None
+
+    def _rows(self, x, mcx):
+        """The rank's rows of a batch-like input (all without a mesh)."""
+        x = torch.as_tensor(x, device=self.device)
+        return x if mcx is None else x[mcx.batch_rows(x.shape[0])]
+
+    def _embed_inputs(self, batch, mcx=None):
         if self.cfg.input_mode == "embeddings":
-            x = torch.as_tensor(batch["embeddings"], device=self.device)
+            x = self._rows(batch["embeddings"], mcx)
             return x.to(L.torch_dtype(self.cfg.dtype))
-        return embed(torch.as_tensor(batch["tokens"], device=self.device),
-                     self.emb)
+        return embed(self._rows(batch["tokens"], mcx), self.emb,
+                     self._vocab_mcx)
 
     def _logits(self, h):
         h = L.apply_norm(self.ln_final, h, self.cfg)
         top = dict(self.named_parameters(recurse=False))
-        return logits_fn(h, _unemb_t(top, self.cfg), self.cfg)
+        return logits_fn(h, _unemb_t(top, self.cfg), self.cfg,
+                         self._vocab_mcx)
+
+    def _mesh_for(self, n: int):
+        """The mesh context for a batch of ``n`` rows (None without a
+        mesh)."""
+        return None if self.mcx is None else self.mcx.for_batch(n)
+
+    def _tokens(self, logits, mcx):
+        """Greedy tokens of the rank's rows, gathered over "data" where the
+        batch is split there: every rank returns the whole batch's."""
+        tok = logits.argmax(-1).to(torch.int32)
+        if mcx is not None and mcx.batch_split and mcx.dp_size > 1:
+            tok = mcx.all_gather(tok, 0, axis="data")
+        return tok
 
     # ---------------- prefill / decode -------------------------------------
     @torch.inference_mode()
     def prefill(self, batch):
-        """(logits of the last position (B,V) float32, caches)."""
-        x = self._embed_inputs(batch)
+        """(logits of the last position (B,V) float32, caches).  On a mesh
+        the batch is the whole one; the logits and caches are the rank's
+        rows (and its chunk of each cache's sequence)."""
+        mcx = self._mesh_for(_batch_rows(batch))
+        x = self._embed_inputs(batch, mcx)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         h, caches = T.forward_prefill(self.layers, x, self.cfg, positions,
-                                      self.shared)
+                                      self.shared, mcx)
         return self._logits(h[:, -1:]), caches
 
     @torch.inference_mode()
     def decode(self, caches, token, pos):
         """(logits (B,V) float32, caches) for one token at ``pos``; the
-        caches (K/V rows, SSM states) are updated in place and returned."""
+        caches (K/V rows, SSM states) are updated in place and returned.
+        On a mesh ``token`` is the whole batch's and the logits the rank's
+        rows."""
         cfg = self.cfg
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-        token = torch.as_tensor(token, device=self.device)
+        mcx = self._mesh_for(len(token))
         if cfg.input_mode == "embeddings":
-            x = token.to(L.torch_dtype(cfg.dtype))
+            x = self._rows(token, mcx).to(L.torch_dtype(cfg.dtype))
         else:
-            x = embed(token[:, None], self.emb)
+            x = embed(self._rows(token, mcx)[:, None], self.emb,
+                      self._vocab_mcx)
         h, caches = T.forward_decode(self.layers, x, caches, int(pos), cfg,
-                                     self.shared)
+                                     self.shared, mcx)
         return self._logits(h), caches
 
     def prefill_step(self, batch):
         """batch {"tokens": (B,S)} or {"embeddings": (B,S,d)} -> (next
         token (B,) int32, caches of the prompt's length)."""
         logits, caches = self.prefill(batch)
-        return logits.argmax(-1).to(torch.int32), caches
+        return self._tokens(logits, self._mesh_for(_batch_rows(batch))), \
+            caches
 
     def decode_step(self, caches, token, pos):
         """token: (B,) ints (or (B,1,d) embeddings); pos: int."""
         logits, caches = self.decode(caches, token, pos)
-        return logits.argmax(-1).to(torch.int32), caches
+        return self._tokens(logits, self._mesh_for(len(token))), caches
 
     # ---------------- training ------------------------------------------------
     def loss_fn(self, batch):
@@ -264,31 +336,128 @@ class Model(nn.Module):
         return opt_state, {"loss": loss, **met, **stats}
 
 
-def pad_caches(caches, length: int):
+def pad_caches(caches, length: int, mesh=None):
     """Caches zero-padded along the sequence to ``length`` positions, the
     layout in which ``decode_step`` appends each new token's cache row
     (K/V, or the MLA latent and RoPE key).  The ``"ssm"`` states have no
-    sequence axis and pass through as they are."""
+    sequence axis and pass through as they are.
+
+    On a mesh (``mesh``, the rank's ``MeshCtx``) each cache is the rank's
+    chunk, and the padded length is rounded up to a multiple of tp; where
+    the chunk length changes, the chunks are gathered over "model" (rows
+    past the prompt are zeros), padded or cut, and each rank keeps its
+    new chunk."""
     out = {}
+    tp = L.tp_of(mesh)
+    length = L.pad_to(length, tp)
     for name, c in caches.items():
         if name == "ssm":
             out[name] = c
             continue
+        if mesh is not None:
+            if c.shape[2] * tp == length:
+                out[name] = c
+                continue
+            c = mesh.all_gather(c, 2)[:, :, :length]
         padded = c.new_zeros(c.shape[:2] + (length,) + c.shape[3:])
         padded[:, :, :c.shape[2]] = c
-        out[name] = padded
+        out[name] = padded if mesh is None else \
+            L.local_part(padded, 2, mesh).clone()
     return out
 
 
 def build(cfg: ModelConfig, device=None,
           generator: Optional[torch.Generator] = None,
-          training: bool = False) -> Model:
+          training: bool = False, mesh=None) -> Model:
     """A ``Model`` with random weights on ``device`` (the card unless the
     caller names one), drawn from ``generator`` (seed 0 by default); with
     ``training``, trainable and with its MTP head.  Kept under the
     reference's name (``repro.models.model.build``), so callers of either
-    package build a model the same way."""
-    return Model(cfg, device, generator, training)
+    package build a model the same way.
+
+    With ``mesh`` (a ``MeshCtx``) the model is that rank's part: every
+    weight is drawn whole from the generator, as without a mesh, and the
+    rank keeps its slice (``shard_leaf``), so a tp = k model holds the tp
+    = 1 model's weights, plus zero query heads where tp does not divide
+    them.  The peak while building is the rank's shard plus one layer
+    whole (of a MoE layer's routed experts one at a time: each is drawn,
+    then kept or dropped)."""
+    return Model(cfg, device, generator, training, mesh)
+
+
+# ---------------------------------------------------------------------------
+# parameter rules on a mesh (serving's: the reference's ``_spec_for_leaf``
+# without FSDP's split over "data", which is training's)
+# ---------------------------------------------------------------------------
+_ITEM_12 = ("ROADMAP Queue 1 item 12, its training half (several cards: "
+            "the Mamba split, ZeRO-1 / FSDP, training on a mesh)")
+
+
+def _routed_expert(name: str) -> bool:
+    parts = name.split(".")
+    return "moe" in parts and parts[-1] in ("w_gate", "w_up", "w_down")
+
+
+def split_dim(name: str, shape, cfg: ModelConfig, tp: int) -> tuple:
+    """(dim, padded): the dim of the weight ``name`` (a state-dict name;
+    ``shape`` its whole shape) of which each of tp ranks holds a 1/tp
+    slice, None where every rank holds it whole; and the size that dim is
+    zero-padded to first (the query heads of GQA attention, padded to a
+    multiple of tp), else None.  The reference's rules: vocabulary rows of
+    ``emb`` / ``unemb``; query heads of ``wq`` / ``bq`` / ``wo``; K/V heads
+    of ``wk`` / ``wv`` where tp divides them (``bk``, ``bv`` whole); MLA's
+    heads of ``wq_b`` / ``wk_b`` / ``wv_b`` / ``wo``; the MLP's width
+    (``w_gate``, ``w_up``, ``b_up`` by column, ``w_down`` by row); a MoE
+    layer's routed experts, and the shared experts' width; norms, the
+    router, MLA's down projections and every bias of the output whole."""
+    parts = name.split(".")
+    leaf = parts[-1]
+
+    def fits(dim):
+        return dim if shape[dim] % tp == 0 else None
+
+    if leaf == "emb":
+        return fits(0), None
+    if leaf == "unemb":
+        return fits(1), None
+    if "attn" in parts and cfg.attn_type != "mla":
+        Hp = L.pad_to(cfg.num_heads, tp)
+        if leaf == "wq":
+            return 1, Hp
+        if leaf in ("wo", "bq"):
+            return 0, Hp
+        if leaf in ("wk", "wv"):
+            return fits(1), None
+        return None, None
+    if "attn" in parts:
+        if leaf in ("wq_b", "wk_b", "wv_b"):
+            return fits(1), None
+        return (fits(0) if leaf == "wo" else None), None
+    if "moe" in parts:
+        if leaf in ("w_gate", "w_up", "w_down", "ws_down"):
+            return fits(0), None
+        return (fits(1) if leaf in ("ws_gate", "ws_up") else None), None
+    if "mlp" in parts:
+        if leaf in ("w_gate", "w_up"):
+            return fits(1), None
+        return (fits(0) if leaf in ("w_down", "b_up") else None), None
+    return None, None
+
+
+def shard_leaf(name: str, t: torch.Tensor, cfg: ModelConfig, mcx):
+    """The rank's part of the weight ``name`` (``t`` whole): padded and
+    sliced as ``split_dim`` says, as a tensor of its own (the whole one can
+    be freed)."""
+    if mcx is None or mcx.tp_size == 1:
+        return t
+    dim, padded = split_dim(name, t.shape, cfg, mcx.tp_size)
+    if dim is None:
+        return t
+    if padded is not None and t.shape[dim] < padded:
+        pad = list(t.shape)
+        pad[dim] = padded - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim)
+    return L.local_part(t, dim, mcx).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +473,7 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_reference(tree, cfg: ModelConfig,
-                          training: bool = False) -> dict:
+                          training: bool = False, mesh=None) -> dict:
     """The port's state dict of the reference's parameter pytree (numpy
     arrays): ``emb``, ``unemb``, ``ln_final``, ``stacks`` (deepseek's
     ``moe_dense`` stack, then its ``moe`` stack; one ``ssm`` or ``hybrid``
@@ -313,7 +482,11 @@ def params_from_reference(tree, cfg: ModelConfig,
 
     ``mtp`` is carried only with ``training``, for a model built for
     training: the multi-token-prediction head is read only by the loss,
-    and a serving ``Model`` holds none."""
+    and a serving ``Model`` holds none.
+
+    With ``mesh`` (a rank's ``MeshCtx``) each global array is sliced to
+    the rank (``shard_leaf``).  The arrays come from a reference built on
+    the same mesh shape, so its padded query heads are the port's."""
     sd = {"emb": _tensor(tree["emb"])}
     if "unemb" in tree:
         sd["unemb"] = _tensor(tree["unemb"])
@@ -337,4 +510,6 @@ def params_from_reference(tree, cfg: ModelConfig,
         for part, leaves in mtp["layer"].items():
             for name, a in leaves.items():
                 sd[f"mtp.layer.{part}.{name}"] = _tensor(a)
+    if mesh is not None:
+        sd = {k: shard_leaf(k, v, cfg, mesh) for k, v in sd.items()}
     return sd

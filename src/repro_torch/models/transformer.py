@@ -36,10 +36,11 @@ from repro_torch.models import ssm as SSM
 # ---------------------------------------------------------------------------
 # per-layer init / fwd
 # ---------------------------------------------------------------------------
-def init_layer(cfg, generator, kind: str) -> nn.ModuleDict:
+def init_layer(cfg, generator, kind: str, experts=None) -> nn.ModuleDict:
     """kind: dense | moe | moe_dense (MLA or GQA attention, then the
     experts, a dense FFN of width ``dense_d_ff``, or the dense FFN) | ssm |
-    hybrid (a norm, then Mamba-1 or Mamba-2)."""
+    hybrid (a norm, then Mamba-1 or Mamba-2).  ``experts``: the range of
+    routed experts a MoE layer keeps (all by default)."""
     dev = generator.device
     if kind in ("ssm", "hybrid"):
         init = SSM.init_mamba1 if kind == "ssm" else SSM.init_mamba2
@@ -53,7 +54,7 @@ def init_layer(cfg, generator, kind: str) -> nn.ModuleDict:
     if not cfg.parallel_block:
         p["ln_mlp"] = L.init_norm(cfg, dev)
     if kind == "moe":
-        p["moe"] = MOE.init_moe(cfg, generator)
+        p["moe"] = MOE.init_moe(cfg, generator, experts)
     elif kind == "moe_dense":
         p["mlp"] = L.init_mlp(cfg, generator, cfg.dense_d_ff)
     else:
@@ -70,45 +71,56 @@ def init_shared_block(cfg, generator) -> nn.ModuleDict:
                           "mlp": L.init_mlp(cfg, generator)})
 
 
-def attn_block_fwd(p, x, cfg, positions, *, causal, return_kv=False):
+def _mlp_width(cfg) -> int:
+    """The width of a layer's dense MLP: ``dense_d_ff`` in a MoE model's
+    dense layers, else ``d_ff``."""
+    return cfg.dense_d_ff if cfg.family == "moe" else cfg.d_ff
+
+
+def attn_block_fwd(p, x, cfg, positions, *, causal, return_kv=False,
+                   mcx=None):
     """As the reference: a parallel block returns y (and kv); otherwise
-    (y, aux) (or (y, aux, kv)), aux the MoE's load-balancing loss or 0."""
+    (y, aux) (or (y, aux, kv)), aux the MoE's load-balancing loss or 0.
+    ``mcx``: the rank's mesh context, or None on one device."""
     h = L.apply_norm(p["ln_attn"], x, cfg)
     if cfg.attn_type == "mla":
         out = L.mla_fwd(p["attn"], h, cfg, positions=positions,
-                        return_kv=return_kv)
+                        return_kv=return_kv, mcx=mcx)
     else:
         out = L.attention_fwd(p["attn"], h, cfg, positions=positions,
-                              causal=causal, return_kv=return_kv)
+                              causal=causal, return_kv=return_kv, mcx=mcx)
     attn_y, kv = out if return_kv else (out, None)
     if cfg.parallel_block:
         # cohere-style: one shared input norm, attn + mlp in parallel
-        y = x + attn_y + L.apply_mlp(p["mlp"], h, cfg)
+        y = x + attn_y + L.apply_mlp(p["mlp"], h, cfg, mcx, _mlp_width(cfg))
         return (y, kv) if return_kv else y
     x = x + attn_y
     h2 = L.apply_norm(p["ln_mlp"], x, cfg)
     if "moe" in p:
-        mlp_y, aux = MOE.moe_fwd(p["moe"], h2, cfg)
+        mlp_y, aux = MOE.moe_fwd(p["moe"], h2, cfg, mcx)
     else:
-        mlp_y, aux = L.apply_mlp(p["mlp"], h2, cfg), 0.0
+        mlp_y, aux = L.apply_mlp(p["mlp"], h2, cfg, mcx, _mlp_width(cfg)), 0.0
     y = x + mlp_y
     return (y, aux, kv) if return_kv else (y, aux)
 
 
-def attn_block_decode(p, x, cache, pos, cfg):
+def attn_block_decode(p, x, cache, pos, cfg, mcx=None):
     h = L.apply_norm(p["ln_attn"], x, cfg)
     if cfg.attn_type == "mla":
-        attn_y, cache = L.mla_decode_attention(p["attn"], h, cache, pos, cfg)
+        attn_y, cache = L.mla_decode_attention(p["attn"], h, cache, pos, cfg,
+                                               mcx)
     else:
-        attn_y, cache = L.gqa_decode_attention(p["attn"], h, cache, pos, cfg)
+        attn_y, cache = L.gqa_decode_attention(p["attn"], h, cache, pos, cfg,
+                                               mcx)
     if cfg.parallel_block:
-        return x + attn_y + L.apply_mlp(p["mlp"], h, cfg), cache
+        return x + attn_y + L.apply_mlp(p["mlp"], h, cfg, mcx,
+                                        _mlp_width(cfg)), cache
     x = x + attn_y
     h2 = L.apply_norm(p["ln_mlp"], x, cfg)
     if "moe" in p:
-        mlp_y, _ = MOE.moe_fwd(p["moe"], h2, cfg)
+        mlp_y, _ = MOE.moe_fwd(p["moe"], h2, cfg, mcx)
     else:
-        mlp_y = L.apply_mlp(p["mlp"], h2, cfg)
+        mlp_y = L.apply_mlp(p["mlp"], h2, cfg, mcx, _mlp_width(cfg))
     return x + mlp_y, cache
 
 
@@ -162,21 +174,45 @@ class MTPHead(nn.Module):
                                 "moe" if cfg.family == "moe" else "dense")
 
 
-def init_stack(cfg, generator, mtp: bool = False) -> dict:
+def _kept(module: nn.Module, prefix: str, keep) -> nn.Module:
+    """``module`` with each weight replaced by ``keep(name, weight)``."""
+    for name, w in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf,
+                L.param(keep(f"{prefix}.{name}", w.data)))
+    return module
+
+
+def init_stack(cfg, generator, mtp: bool = False, keep=None,
+               experts=None) -> dict:
     """Random parameters on the generator's device: the embedding (vocab
     padded to a multiple of 256, Megatron-style), the unembedding unless
     tied, the final norm and the layers; with ``mtp`` and a config that
     has ``mtp_depth``, also the MTP head, drawn after every other weight
-    so that those are the same with or without it."""
+    so that those are the same with or without it.
+
+    Every weight is drawn whole, in one order, so the draws do not depend
+    on a mesh.  ``keep(name, weight)`` (a state-dict name) gives what the
+    model holds of each, applied to each weight as it is drawn and to each
+    layer once drawn; ``experts`` is the range of routed experts a MoE
+    layer keeps, each drawn and then kept or dropped."""
+    kept = keep or (lambda name, t: t)
     dt, dev = L.torch_dtype(cfg.dtype), generator.device
     V = L.pad_to(cfg.vocab_size, 256)
-    params = {"emb": L.param(L.normal((V, cfg.d_model), generator, dt))}
+    params = {"emb": L.param(kept("emb", L.normal((V, cfg.d_model),
+                                                  generator, dt)))}
     if not cfg.tie_embeddings:
-        params["unemb"] = L.param(L.normal((cfg.d_model, V), generator, dt))
+        params["unemb"] = L.param(kept("unemb", L.normal((cfg.d_model, V),
+                                                         generator, dt)))
     params["ln_final"] = L.init_norm(cfg, dev)
-    params["layers"] = nn.ModuleList(
-        init_layer(cfg, generator, kind)
-        for kind, lo, hi in stack_groups(cfg) for _ in range(lo, hi))
+    kinds = [kind for kind, lo, hi in stack_groups(cfg)
+             for _ in range(lo, hi)]
+    layers = []
+    for i, kind in enumerate(kinds):
+        layer = init_layer(cfg, generator, kind, experts)
+        layers.append(layer if keep is None
+                      else _kept(layer, f"layers.{i}", keep))
+    params["layers"] = nn.ModuleList(layers)
     if cfg.family == "hybrid":
         params["shared"] = init_shared_block(cfg, generator)
     if mtp and cfg.mtp_depth:
@@ -290,12 +326,28 @@ def _slot_of(cfg) -> dict:
     return {li: si for si, li in enumerate(hybrid_attn_slots(cfg))}
 
 
-def forward_prefill(layers, x, cfg, positions, shared=None):
+def _to_seq_split(name, rows, cfg, mcx):
+    """One layer's cache rows from prefill (the K/V heads the rank
+    computed, or the MLA latent whole) as the rank's sequence chunk with
+    every K/V head: one all-to-all where the rank computed its K/V heads
+    only, else its chunk cut out."""
+    head_dim = 2 if name in ("k", "v") and L.splits(cfg.num_kv_heads,
+                                                    mcx) else None
+    return L.seq_split(rows, mcx, head_dim)
+
+
+def forward_prefill(layers, x, cfg, positions, shared=None, mcx=None):
     """x: (B,S,d) after embedding; ``shared`` is the hybrid's shared block.
     Returns (hidden, caches), the K/V caches exactly as long as the prompt,
-    as on the reference."""
+    as on the reference.  On a mesh (``mcx``) the attention families keep
+    the rank's chunk of each cache, ceil(S / tp) positions (zero past S),
+    handed over from the head split layer by layer; the ``ssm`` and
+    ``hybrid`` stacks run at tp = 1 only (``models.model.build``)."""
     B, S = x.shape[:2]
-    caches = _empty_caches(x, cfg, B, S)
+    if cfg.family in ("ssm", "hybrid"):
+        mcx = None
+    S_loc = S if mcx is None else -(-S // mcx.tp_size)
+    caches = _empty_caches(x, cfg, B, S_loc)
     if cfg.family in ("ssm", "hybrid"):
         fwd = SSM.mamba1_fwd if cfg.family == "ssm" else SSM.mamba2_fwd
         conv, h = caches["ssm"]
@@ -313,20 +365,22 @@ def forward_prefill(layers, x, cfg, positions, shared=None):
         return x, caches
     for i, lp in enumerate(layers):
         out = attn_block_fwd(lp, x, cfg, positions, causal=not cfg.is_encoder,
-                             return_kv=True)
+                             return_kv=True, mcx=mcx)
         x, kv = out[0], out[-1]
         for name, c in zip(caches, kv):
-            caches[name][i] = c
+            caches[name][i] = c if mcx is None else \
+                _to_seq_split(name, c, cfg, mcx)
     return x, caches
 
 
 # ---------------------------------------------------------------------------
 # decode: one token, caches carried
 # ---------------------------------------------------------------------------
-def forward_decode(layers, x, caches, pos, cfg, shared=None):
+def forward_decode(layers, x, caches, pos, cfg, shared=None, mcx=None):
     """x: (B,1,d).  Each layer writes its new state, or the token's cache
-    row (where ``pos`` is inside the caches), into its slice of ``caches``
-    in place; returns (hidden, caches)."""
+    row (where ``pos`` is inside the caches; on a mesh, inside the rank's
+    chunk), into its slice of ``caches`` in place; returns (hidden,
+    caches)."""
     if cfg.family in ("ssm", "hybrid"):
         step = SSM.mamba1_step if cfg.family == "ssm" else SSM.mamba2_step
         conv, h = caches["ssm"]
@@ -343,5 +397,5 @@ def forward_decode(layers, x, caches, pos, cfg, shared=None):
         return x, caches
     for i, lp in enumerate(layers):
         x, _ = attn_block_decode(lp, x, {n: c[i] for n, c in caches.items()},
-                                 pos, cfg)
+                                 pos, cfg, mcx)
     return x, caches

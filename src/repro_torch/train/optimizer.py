@@ -17,7 +17,7 @@ weight therefore keeps none of an update smaller than half its ulp, while
 its master moves (ROADMAP, Queue 3).
 
 The reference's ZeRO-1 sharding of this state over data-parallel devices
-is ROADMAP Queue 1 item 12 (several cards).
+is ROADMAP Queue 1 item 12's training half (several cards).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 
 _SHARDING = ("sharding optimizer state over data-parallel devices is "
-             "ROADMAP Queue 1 item 12 (several cards)")
+             "ROADMAP Queue 1 item 12 (several cards), its training half")
 
 
 @dataclass(frozen=True)

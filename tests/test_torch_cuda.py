@@ -974,3 +974,70 @@ def test_counted_cores_at_phase5_shapes_leave_the_card_sound(card):
     torch.cuda.synchronize()
     assert torch.equal(mask.cpu(), ref.unique_mask_ref(rows.cpu()))
     assert r.as_dict()["bytes"] == rows.numel() * 4 + 4 * rows.shape[0]
+
+
+def _mesh_serve(mcx, cfg, tokens, gen):
+    """Prefill ``tokens`` and ``gen`` greedy decode steps as the rank
+    ``mcx`` (or without a mesh): the rank's logits of every step."""
+    from repro_torch.models import model as M
+    dev = tokens.device
+    mdl = M.build(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                  mesh=mcx)
+    logits, caches = mdl.prefill({"tokens": tokens})
+    out = [logits]
+    caches = M.pad_caches(caches, tokens.shape[1] + gen, mcx)
+    tok = mdl._tokens(logits, mdl._mesh_for(len(tokens)))
+    for t in range(gen):
+        logits, caches = mdl.decode(caches, tok, tokens.shape[1] + t)
+        tok = mdl._tokens(logits, mdl._mesh_for(len(tokens)))
+        out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("arch,more,shape", [
+    ("stablelm_12b", {}, (1, 2)), ("stablelm_12b", {}, (1, 4)),
+    ("deepseek_v3_671b", {"capacity_factor": 4.0}, (2, 2)),
+    ("qwen3_moe_30b_a3b", {"moe_dispatch": "a2a", "capacity_factor": 4.0},
+     (2, 2))])
+def test_thread_ranks_on_the_card_equal_one_device(card, arch, more, shape):
+    """Smoke configs in float32 (TF32 off): thread ranks sharing the card
+    give the run without a mesh, rank by rank (its rows)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch).with_(dtype="float32", **more)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=card,
+                           generator=torch.Generator(card).manual_seed(1))
+    want = _mesh_serve(None, cfg, tokens, 4)
+    dp, tp = shape
+    for r, got in enumerate(make_host_mesh(dp, tp).run(
+            _mesh_serve, cfg, tokens, 4)):
+        rows = slice(r // tp * 2 // dp, (r // tp + 1) * 2 // dp)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w[rows], atol=1e-4, rtol=1e-4)
+
+
+def test_an_nccl_world_of_one_serves_as_no_mesh(card):
+    """The process path at tp = 1: an in-process NCCL world of one gives
+    the bfloat16 smoke model's run without a mesh to the bit."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import mesh as MESH
+    cfg = get_smoke_config("stablelm_12b")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), device=card,
+                           generator=torch.Generator(card).manual_seed(1))
+    want = _mesh_serve(None, cfg, tokens, 4)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        got = _mesh_serve(MESH.make_mesh_ctx(MESH.make_process_mesh()), cfg,
+                          tokens, 4)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -212,6 +212,31 @@ Phases, each fatal on failure:
    the card count, one process per card (logits held, tokens counted:
    bfloat16 sums in another order flip near-ties), timed.  It adds the
    ``mesh`` line and a ``launches_mesh`` key to each kernel row.
+18. training on a mesh (the mesh paths' gradients, ZeRO-1, FSDP; no
+   kernel of its own), after phase 15's comparisons have freed the
+   records phase 15 keeps on the card: (i) ``zamba2_1p2b``'s ``CONFIG``
+   whole in bfloat16 as two thread ranks at (2, 1) (data parallel: no
+   collective inside its backward), from phase 15's weights and batches,
+   two steps within ``BF16_REL`` of phase 15's one-device steps, timed;
+   (ii) ``launch/train.py --smoke`` under ``torchrun
+   --nproc-per-node=<cards>`` (NCCL), its losses the in-process run's;
+   (iii) 2-layer float32 copies at full width, 2 x 520, as four
+   processes sharing the card (``MeshTrainWorkers``: thread ranks cannot
+   run a backward with a collective on a card, NCCL refuses two ranks on
+   one device; the processes' collectives go through buffers on the card
+   that each maps, ordered by gloo barriers): ``stablelm_12b`` at (1, 2)
+   and (2, 2), ``qwen3_moe_30b_a3b`` with a2a at (2, 2),
+   ``deepseek_v3_671b``'s two dense MLA layers with FSDP at (2, 2),
+   ``falcon_mamba_7b`` and ``zamba2_1p2b`` at (1, 2),
+   and zamba2 with ``grad_compress`` at (2, 2), one ``train_step`` each
+   against the plain run: loss, ce and grad_norm within
+   ``F32_METRIC_REL``, every gathered gradient within ``F32_GRAD_RMS``,
+   every gathered weight after within ``F32_UPDATE_RMS``, each int8 scale
+   within ``INT8_SCALE_REL`` of the whole tensor's; with three planted
+   faults above their bounds (an all-reduce whose backward sums, a ZeRO-1
+   update left un-gathered, an int8 scale from the shard).  It adds the
+   ``mesh_train`` line and a ``launches_mesh_train`` key to each kernel
+   row.
 
 It prints a ``{"profile": [...]}`` line, a ``{"sort_2^22": {...}}`` line,
 a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
@@ -220,18 +245,20 @@ a ``{"probe_grid": {...}}`` line, a ``{"deltas": [...]}`` line, a
 ``{"serve": {...}}`` line, a ``{"serve_moe": {...}}`` line, a
 ``{"serve_ssm": {...}}`` line, a ``{"train": {...}}`` line, an
 ``{"analysis": {...}}`` line, a ``{"mesh": {...}}`` line, a
-``{"kernels": [...]}`` line,
+``{"mesh_train": {...}}`` line, a ``{"kernels": [...]}`` line,
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and the
 repository's ``src/`` beside it, and exits non-zero without a result
 otherwise.  ``chip_smoke.py --child ...`` is phase 8's child process,
 ``chip_smoke.py --fused-cpu DIR`` phase 9's CPU cold runs, and
 ``chip_smoke.py --mesh-child DIR`` (under ``torchrun``) a rank of phase
-17's run on several cards.
+17's run on several cards; phase 18's processes are spawned
+(``mesh_train_worker``).
 """
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import shutil
@@ -832,6 +859,18 @@ DRILL_UNIV = 200        # LUBM-L size of the SIGTERM and corruption drills
 
 def sync():
     torch.cuda.synchronize()
+
+
+def release_card() -> None:
+    """This process's free memory on the card handed back: the collected
+    tensors' blocks, and cuBLAS's workspaces (one for each thread that ran
+    a matmul, held in the allocator's cache: a workspace left in a large
+    free segment keeps the whole segment)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
 
 
 def draw_facts(facts, n, rng, taken=()):
@@ -2448,8 +2487,8 @@ class StepFault:
         self.mod, self.steps = ssm, (ssm.mamba1_step, ssm.mamba2_step)
 
         def faulty(step):
-            def run(p, x, cfg, state):
-                out, new = step(p, x, cfg, state)
+            def run(p, x, cfg, state, *mesh):
+                out, new = step(p, x, cfg, state, *mesh)
                 return out, self.alter(state, new)
             return run
         ssm.mamba1_step, ssm.mamba2_step = map(faulty, self.steps)
@@ -2891,6 +2930,7 @@ class StepClock:
             clock.steps.append({"step": step,
                                 "ms": (time.perf_counter() - t0) * 1e3,
                                 "loss": float(met["loss"]),
+                                "ce": float(met["ce"]),
                                 "grad_norm": float(met["grad_norm"])})
             return out[0]
         self.cls.train_step = timed
@@ -3049,6 +3089,9 @@ def zamba_whole() -> dict:
     del mdl, opt, batch, params
     losses = [s["loss"] for s in clock.steps]
     norms = [s["grad_norm"] for s in clock.steps]
+    ZAMBA_WHOLE.update(losses=losses, grad_norms=norms,
+                       ces=[s["ce"] for s in clock.steps],
+                       median_step_ms=tm["median_step_ms"])
     rec = {"params": counts["total"], "active_params": counts["active"],
            "batch": B, "seq": S, "microbatches":
            cfg.microbatches, "remat": cfg.remat, **tm, "losses": losses,
@@ -3728,6 +3771,604 @@ def mesh_phase(full_run) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on a mesh
+# ---------------------------------------------------------------------------
+ZAMBA_WHOLE: dict = {}   # phase 15's zamba2_1p2b steps (phase 18's (i)
+                         # holds to them)
+MESH_TRAIN_SEQ = 520     # 2 x 520 tokens: TRAIN_2L's falcon length
+MESH_TRAIN_WORLD = 4     # processes sharing the card over gloo
+INT8_SCALE_REL = 1e-5    # each leaf's int8 scale against the plain run's
+                         # whole-tensor max, relative (float32 rounding of
+                         # the delta moves it by about 1e-7)
+# (key, arch, overrides, (dp, tp)): 2-layer float32 copies at full width,
+# one train_step each against the same weights without a mesh.  qwen3's
+# a2a at capacity factor E / k (nothing drops: the one device keeps every
+# assignment too); deepseek's two dense MLA layers without the MTP head
+# (one more MoE layer, 45 GB in float32).  The plain run goes first; its
+# records wait for the ranks' results on the card, or in host memory
+# where they pass ``HOST_RECORDS_SHARE`` of the card (deepseek's, 24 GB:
+# with the ranks' results, as large again, and the ranks' step they
+# would not fit)
+HOST_RECORDS_SHARE = 0.25
+MESH_TRAIN_2L = [
+    ("stablelm_12b_1x2", "stablelm_12b", {}, (1, 2)),
+    ("falcon_mamba_7b_1x2", "falcon_mamba_7b", {}, (1, 2)),
+    ("zamba2_1p2b_1x2", "zamba2_1p2b", {"hybrid_attn_every": 2}, (1, 2)),
+    ("stablelm_12b_2x2", "stablelm_12b", {}, (2, 2)),
+    ("qwen3_moe_30b_a3b_a2a_2x2", "qwen3_moe_30b_a3b",
+     {"moe_dispatch": "a2a", "capacity_factor": 16.0}, (2, 2)),
+    ("deepseek_v3_671b_mla_fsdp_2x2", "deepseek_v3_671b",
+     {"num_dense_layers": 2, "mtp_depth": 0, "fsdp": True}, (2, 2)),
+    ("zamba2_1p2b_2x2_grad_compress", "zamba2_1p2b",
+     {"hybrid_attn_every": 2, "grad_compress": True}, (2, 2)),
+]
+# fault: (the case it is planted in, the record's key that must read above
+# its bound, the bound)
+MESH_TRAIN_FAULTS = {
+    # the all-reduce of a row-parallel output summing its gradient over
+    # "model" too: every gradient before it doubles
+    "sum_reduce_backward_sums": ("zamba2_1p2b_1x2", "grad_rms_rel_worst",
+                                 F32_GRAD_RMS),
+    # each data rank writes its own ZeRO-1 shard of the new weights only
+    "zero1_update_not_gathered": ("zamba2_1p2b_2x2_grad_compress",
+                                  "update_rms_rel_worst", F32_UPDATE_RMS),
+    # the int8 scale from the rank's shard, not the whole tensor
+    "int8_scale_of_the_shard": ("zamba2_1p2b_2x2_grad_compress",
+                                "int8_scale_rel_worst", INT8_SCALE_REL),
+}
+
+
+def mesh_train_config(arch, overrides):
+    from repro_torch.configs.base import get_config
+    return get_config(arch).with_(num_layers=2, dtype="float32",
+                                  microbatches=1, **overrides)
+
+
+def mesh_train_batch() -> dict:
+    """2 x 520 tokens below every copy's vocabulary (numpy)."""
+    from repro_torch.configs.base import get_config
+    vocab = min(get_config(a).vocab_size for _, a, _, _ in MESH_TRAIN_2L)
+    tok = torch.randint(0, vocab, (2, MESH_TRAIN_SEQ + 1),
+                        generator=torch.Generator().manual_seed(2))
+    return {"tokens": tok[:, :-1].numpy(), "labels": tok[:, 1:].numpy()}
+
+
+class StepRecord:
+    """While entered on this thread: the gradients each
+    ``optimizer.apply_updates`` is given (on a mesh the rank's ZeRO-1
+    shards, summed over "data") and each int8 scale's max, in leaf order;
+    calls from other threads pass through."""
+
+    def __enter__(self):
+        import threading
+        from repro_torch.train import optimizer as OPT
+        owner, rec = threading.get_ident(), self
+        self.grads, self.scales = None, []
+        apply, quant = OPT.apply_updates, OPT._quantize_int8
+
+        def recorded_apply(grads, *a, **k):
+            if threading.get_ident() == owner:
+                rec.grads = dict(grads)
+            return apply(grads, *a, **k)
+
+        def recorded_quant(x, amax=None):
+            if threading.get_ident() == owner:
+                rec.scales.append(float(x.abs().max() if amax is None
+                                        else amax))
+            return quant(x, amax)
+        self.patches = [Patched(OPT, "apply_updates", recorded_apply),
+                        Patched(OPT, "_quantize_int8", recorded_quant)]
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.__exit__(*exc)
+        self.patches = None     # the wrappers hold this record: free both
+
+
+def mesh_train_reference(cfg, batch) -> dict:
+    """The plain run: ``cfg`` without a mesh on the card, one
+    ``train_step``; its metrics, gradients and weights after (in host
+    memory where they pass ``HOST_RECORDS_SHARE`` of the card) and per
+    weight the sums of squares the errors are taken against."""
+    from repro_torch.models.model import build
+    torch.cuda.reset_peak_memory_stats()
+    mdl = build(cfg, CARD, torch.Generator(device=CARD).manual_seed(0),
+                training=True)
+    b = {k: torch.from_numpy(v % cfg.vocab_size).to(CARD)
+         for k, v in batch.items()}
+    with StepRecord() as rec:
+        opt, met = mdl.train_step(mdl.init_opt_state(), b, 0)
+    del opt
+    out = {"metrics": {k: float(v) for k, v in met.items()},
+           "scales": rec.scales, "grads": {}, "after": {},
+           "g_ss": {}, "u_ss": {}, "numel": {},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    size = sum(2 * p.numel() * p.element_size()
+               for p in mdl.parameters())
+    card_bytes = torch.cuda.get_device_properties(CARD).total_memory
+    keep = "cpu" if size > HOST_RECORDS_SHARE * card_bytes else CARD
+    out["records_on"] = keep
+    for n, p in mdl.named_parameters():
+        g = rec.grads.pop(n)
+        out["g_ss"][n] = float(g.double().square().sum())
+        out["grads"][n] = g.to(keep)
+        out["after"][n] = p.detach().to(keep)
+        out["numel"][n] = p.numel()
+        del g
+    del mdl, rec
+    release_card()
+    init = build(cfg, CARD, torch.Generator(device=CARD).manual_seed(0),
+                 training=True)
+    for n, p in init.named_parameters():
+        out["u_ss"][n] = float((out["after"][n].to(CARD).float()
+                                - p.detach().float()).double()
+                               .square().sum())
+    del init
+    release_card()
+    return out
+
+
+def mesh_rank_step(mcx, task) -> dict:
+    """One rank of a phase-18 case (a worker process): the copy on its
+    mesh, one ``train_step`` with the task's fault planted; its metrics,
+    reduced gradients and weights after (on the card, handed to the
+    parent), specs and int8 scales."""
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models.model import build
+    from repro_torch.train import optimizer as OPT
+    cfg = task.get("config") or mesh_train_config(task["arch"],
+                                                  task["overrides"])
+    batch = {k: torch.from_numpy(v % cfg.vocab_size).to(CARD)
+             for k, v in task["batch"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    mdl = build(cfg, CARD, torch.Generator(device=CARD).manual_seed(0),
+                training=True, mesh=mcx)
+    settle_weights(mdl)
+    torch.cuda.reset_peak_memory_stats()
+    faults = {
+        "sum_reduce_backward_sums": (MESH._SumReduce, "backward",
+                                     staticmethod(_summing_backward)),
+        "zero1_update_not_gathered": (OPT, "_to_replica", _own_shard_only),
+        "int8_scale_of_the_shard": (OPT, "_global_amax",
+                                    lambda amax, layout: amax)}
+    planted = Patched(*faults[task["fault"]]) if task["fault"] else None
+    if planted:
+        planted.__enter__()
+    try:
+        opt = mdl.init_opt_state()
+        sync()
+        t0 = time.perf_counter()
+        with StepRecord() as rec:
+            opt, met = mdl.train_step(opt, batch, 0)
+        sync()
+        step_s = time.perf_counter() - t0
+    finally:
+        if planted:
+            planted.__exit__(None, None, None)
+    lay = mdl._state_layout()
+    del opt
+    peak_reserved = torch.cuda.max_memory_reserved()
+    release_card()                    # the plain run takes the card next
+    if mcx is None:                   # a warm-up
+        return None
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "after": {n: p.detach() for n, p in mdl.named_parameters()},
+            "grads": rec.grads, "scales": rec.scales,
+            "pspecs": mdl.param_specs(), "sspecs": lay.state_specs,
+            "coords": (mcx.dp_size, mcx.tp_size, mcx.data_index,
+                       mcx.model_index),
+            "step_s": step_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": peak_reserved}
+
+
+def settle_weights(mdl) -> None:
+    """The model's weights moved to the host and back, each into a segment
+    of the card's cache of its own.  ``build`` draws each weight whole and
+    keeps the rank's slice, so the slices and the optimizer state would
+    otherwise split the segments the wholes were drawn in, whose
+    remainders the step's larger buffers cannot use: four ranks of
+    deepseek's copy leave the card a few GB."""
+    with torch.no_grad():
+        for p in mdl.parameters():
+            p.data = p.data.cpu()
+        release_card()
+        for p in mdl.parameters():
+            p.data = p.data.to(CARD)
+
+
+def _summing_backward(ctx, g):
+    """A planted fault: the all-reduce's backward sums over its axis."""
+    return ctx.mcx._collective("all_reduce", g, ctx.axis, "sum"), None, None
+
+
+def _own_shard_only(p, shard, dim, mcx):
+    """A planted fault: the new ZeRO-1 shard written into the rank's own
+    rows of its replica, the rest left as it was."""
+    k = shard.shape[dim]
+    p.narrow(dim, mcx.data_index * k, k).copy_(shard)
+
+
+def mesh_train_worker(rank, port, tasks, results, acks):
+    """A process of phase 18 (iii): rank ``rank`` of a gloo world of
+    ``MESH_TRAIN_WORLD`` processes sharing the card, which holds the (2, 2)
+    mesh and the (1, 2) mesh of processes 0 and 1.  Each task runs on its
+    mesh's processes (``mesh_rank_step``); the result stays alive until
+    the parent acknowledges it."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as MESH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=MESH_TRAIN_WORLD, rank=rank)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_card_comm import CardComm
+    comm = functools.partial(CardComm, device=CARD)
+    meshes = {(1, 2): MESH.ProcessMesh(1, 2, (0, 1), comm=comm),
+              (2, 2): MESH.ProcessMesh(2, 2, comm=comm)}
+    # gloo connects a group at its first collective, and the card loads
+    # a kernel at its first use: both before the first task
+    one = torch.ones((8, 8), device=CARD)
+    for mesh in meshes.values():
+        if mesh.rank is not None:
+            mcx = MESH.make_mesh_ctx(mesh)
+            for axis in ("model", "data", ("data", "model")):
+                mcx.all_reduce(one, axis)
+    from repro_torch.configs.base import get_smoke_config
+    mesh_rank_step(None, {"fault": None, "batch": mesh_train_batch(),
+                          "config": get_smoke_config("stablelm_12b").with_(
+                              dtype="float32")})
+    sync()
+    results.put((rank, "ready"))
+    while True:
+        task = tasks.get()
+        if task is None:
+            break
+        mesh = meshes[task["mesh"]]
+        if mesh.rank is None:
+            continue
+        try:
+            out = mesh_rank_step(MESH.make_mesh_ctx(mesh), task)
+        except Exception as e:            # noqa: BLE001 - reported
+            import traceback
+            results.put((rank, f"{e!r}\n{traceback.format_exc()}"))
+            break
+        results.put((rank, out))
+        acks.get()
+        del out
+        gc.collect()
+        torch.cuda.ipc_collect()
+        release_card()
+        results.put((rank, "freed"))
+    dist.destroy_process_group()
+
+
+class MeshTrainWorkers:
+    """The ``MESH_TRAIN_WORLD`` worker processes (started with the
+    ``spawn`` method; each takes the card), their task queues, the shared
+    result queue and an acknowledgement queue each."""
+
+    def __init__(self):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(MESH_TRAIN_WORLD)]
+        self.acks = [ctx.Queue() for _ in range(MESH_TRAIN_WORLD)]
+        self.results = ctx.Queue()
+        port = free_port()
+        self.procs = [ctx.Process(target=mesh_train_worker, args=(
+            r, port, self.tasks[r], self.results, self.acks[r]),
+            daemon=True) for r in range(MESH_TRAIN_WORLD)]
+        for p in self.procs:
+            p.start()
+        self.ready = False
+
+    def _get(self, timeout=600):
+        rank, out = self.results.get(timeout=timeout)
+        if isinstance(out, str) and out not in ("ready", "freed"):
+            fail(f"mesh train: rank {rank}: {out}")
+        return rank, out
+
+    def run(self, task) -> list:
+        """The task on every process; the results of its mesh's ranks, in
+        rank order (each to be acknowledged by ``done``)."""
+        if not self.ready:
+            for _ in self.procs:
+                self._get()
+            self.ready = True
+        for q in self.tasks:
+            q.put(task)
+        n = task["mesh"][0] * task["mesh"][1]
+        got = dict(self._get() for _ in range(n))
+        return [got[r] for r in range(n)]
+
+    def done(self, n) -> None:
+        """The results of ranks 0 .. n - 1 released: each frees its
+        memory on the card before the next task."""
+        for r in range(n):
+            self.acks[r].put(True)
+        for _ in range(n):
+            self._get()
+
+    def close(self) -> None:
+        for q in self.tasks:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def mesh_train_held(cfg, ref, outs) -> dict:
+    """The ranks' records against the plain run: loss, ce and grad_norm
+    (every rank's equal), lr, every gradient and every weight after the
+    step over the whole tensor (each element taken once, from the rank
+    that counts it: ``ZeroLayout.counted``'s rule) as ``held_f32`` takes
+    them, and the int8 scales."""
+    import math
+    from repro_torch.launch.mesh import MeshCtx
+    from repro_torch.models.model import local_leaf
+    rec = {}
+    met = outs[0]["metrics"]
+    rec["ranks_agree"] = all(o["metrics"] == met for o in outs)
+    rec["metric_rel_max"] = max(
+        abs(met[k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+        for k in ("loss", "ce", "grad_norm"))
+    rec["lr_equal"] = met["lr"] == ref["metrics"]["lr"]
+
+    def counted(spec, d, m):
+        return ("model" in spec or m == 0) and ("data" in spec or d == 0)
+    # each rank's part is cut from the plain run's record where it lies
+    # (host memory or the card) and compared on the card: the ranks'
+    # results wait there beside it
+    sse = {"grads": {}, "after": {}}
+    for n in ref["after"]:
+        for part, specs in (("grads", "sspecs"), ("after", "pspecs")):
+            total = 0.0
+            for o in outs:
+                dp, tp, d, m = o["coords"]
+                spec = o[specs][n]
+                if counted(spec, d, m):
+                    mcx = MeshCtx(dp, tp, d, m, None)
+                    want = local_leaf(n, ref[part][n], spec, cfg,
+                                      mcx).to(CARD)
+                    total += float(torch.sub(o[part][n].float(),
+                                             want.float())
+                                   .double().square_().sum())
+                    del want
+            sse[part][n] = total
+
+    def worst_of(part, ss):
+        scale = {n: math.sqrt(ss[n] / ref["numel"][n]) for n in ss}
+        floor = ZERO_FLOOR * max(scale.values())
+        errs = {n: math.sqrt(sse[part][n] / ref["numel"][n])
+                / max(scale[n], floor, 1e-30) for n in ss}
+        return worst(errs)
+    rec["grad_rms_rel_worst"] = worst_of("grads", ref["g_ss"])
+    rec["update_rms_rel_worst"] = worst_of("after", ref["u_ss"])
+    if ref["scales"]:
+        rec["int8_scale_rel_worst"] = max(
+            abs(s - w) / w for o in outs for s, w in zip(o["scales"],
+                                                         ref["scales"]))
+    rec["ok"] = rec["ranks_agree"] and rec["lr_equal"] and \
+        rec["metric_rel_max"] <= F32_METRIC_REL and \
+        rec["grad_rms_rel_worst"][1] <= F32_GRAD_RMS and \
+        rec["update_rms_rel_worst"][1] <= F32_UPDATE_RMS and \
+        rec.get("int8_scale_rel_worst", 0.0) <= INT8_SCALE_REL
+    rec["step_s_rank0"] = outs[0]["step_s"]
+    rec["peak_bytes_rank0"] = outs[0]["peak_bytes"]
+    rec["peak_reserved_bytes_max"] = max(o["peak_reserved_bytes"]
+                                         for o in outs)
+    return rec
+
+
+def zamba_on_a_data_mesh() -> dict:
+    """(i): ``zamba2_1p2b``'s ``CONFIG`` whole in bfloat16 (38 layers,
+    microbatches 2, remat full) as two thread ranks at (2, 1) on the card
+    (no collective runs inside its backward), ZeRO-1 over "data", from
+    phase 15's weights (seed 0) and batches (``SyntheticTokens``, 8 x
+    2048): two steps, each step's loss, ce and grad_norm within
+    ``BF16_REL`` of phase 15's one-device steps; step ms (rank 0, the
+    ranks share the card), tokens/s and the peak."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build
+    cfg = get_config("zamba2_1p2b")
+    B, S = 8, 2048
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def rank(mcx):
+        mdl = build(cfg, CARD, torch.Generator(device=CARD).manual_seed(0),
+                    training=True, mesh=mcx)
+        data = SyntheticTokens(cfg.vocab_size, B, S)
+        opt = mdl.init_opt_state()
+        steps = []
+        for step in range(2):
+            batch = data.next()
+            sync()
+            t0 = time.perf_counter()
+            opt, met = mdl.train_step(opt, batch, step)
+            sync()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          **{k: float(v) for k, v in met.items()}})
+        return steps
+    runs = make_host_mesh(2, 1).run(rank)
+    peak = torch.cuda.max_memory_allocated() - held
+    want = ZAMBA_WHOLE
+    rels = [abs(s[k] - want[key][i]) / abs(want[key][i])
+            for i, s in enumerate(runs[0])
+            for k, key in (("loss", "losses"), ("ce", "ces"),
+                           ("grad_norm", "grad_norms"))]
+    ms = [s["ms"] for s in runs[0]]
+    rec = {"mesh": [2, 1], "batch": B, "seq": S,
+           "microbatches": cfg.microbatches, "steps": runs[0],
+           "one_device": {k: want[k][:2] for k in ("losses", "ces",
+                                                   "grad_norms")},
+           "metric_rel_max": max(rels), "tol_rel": BF16_REL,
+           "step_ms": ms, "tokens_per_s": B * S / (ms[-1] / 1e3),
+           "one_device_median_step_ms": want["median_step_ms"],
+           "peak_bytes": peak, "held_bytes": held,
+           "ranks_agree": runs[0] == [dict(s, ms=r["ms"]) for s, r in
+                                      zip(runs[1], runs[0])]}
+    rec["ok"] = rec["metric_rel_max"] <= BF16_REL and all(
+        np.isfinite([s[k] for s in runs[0] for k in ("loss", "grad_norm")]))
+    torch.cuda.empty_cache()
+    log(f"[mesh_train] zamba2_1p2b (2, 1) {json.dumps(rec)}")
+    return rec
+
+
+def start_train_launcher(tmp):
+    """(ii) started: ``launch/train.py --smoke`` under ``torchrun`` with a
+    process per card (NCCL), 3 steps of 8 x 256, in the background."""
+    out = os.path.join(tmp, "train_losses.npy")
+    return start_torchrun(["-m", "repro_torch.launch.train", "--arch",
+                           "stablelm_12b", "--smoke", "--steps", "3",
+                           "--out", out],
+                          torch.cuda.device_count(), tmp), out
+
+
+def train_launcher_check(started) -> dict:
+    """(ii) ended: the launcher's losses finite and equal to the same run
+    in this process (on one card a world of one, which trains as no mesh
+    to the bit)."""
+    from repro_torch.launch import train as launch
+    handle, out = started
+    here = out + ".here.npy"
+    launch.main(["--arch", "stablelm_12b", "--smoke", "--steps", "3",
+                 "--out", here])
+    stdout, secs = end_torchrun(handle)
+    got, want = np.load(out), np.load(here)
+    rec = {"nproc": torch.cuda.device_count(), "torchrun_s": secs,
+           "lines": [ln for ln in stdout.splitlines()
+                     if ln.startswith(("[launch]", "[train]"))],
+           "losses": got[:, 1].tolist(), "in_process": want[:, 1].tolist()}
+    rec["ok"] = got.shape == want.shape and bool(
+        np.isfinite(got).all()) and bool(np.array_equal(got, want))
+    log(f"[mesh_train] launcher {json.dumps(rec)}")
+    return rec
+
+
+def mesh_train_start():
+    """Phase 18's background parts, started early (before phase 17: each
+    takes tens of seconds to reach the card, and little memory until its
+    task): the launcher of (ii) under ``torchrun`` and the processes of
+    (iii).  Returns (scratch directory, launcher, workers) for
+    ``mesh_train_phase``."""
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_",
+                           dir=os.path.join(HERE, "build"))
+    import atexit
+    started = [tmp, None, None]
+    # a failing phase before 18 exits the smoke: its processes end too
+    atexit.register(mesh_train_stop, started)
+    started[1] = start_train_launcher(tmp)
+    started[2] = MeshTrainWorkers()
+    return started
+
+
+def mesh_train_stop(started) -> None:
+    """Ends what ``mesh_train_start`` started and removes its directory
+    (once: later calls find nothing to do)."""
+    tmp, launcher, workers = started
+    started[1] = started[2] = None
+    if workers is not None:
+        workers.close()
+    if launcher is not None and launcher[0][0].poll() is None:
+        launcher[0][0].kill()
+        launcher[0][0].wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_train_phase(started) -> dict:
+    """Phase 18, on what ``mesh_train_start`` started.  (i)
+    ``zamba_on_a_data_mesh``; (ii) the launcher under ``torchrun``
+    (``train_launcher_check``); (iii) the ``MESH_TRAIN_2L`` copies at tp >
+    1 and (2, 2) as processes sharing the card (``MeshTrainWorkers``;
+    thread ranks cannot run a backward with a collective on a card), each
+    held against the plain run (``mesh_train_held``), with the
+    ``MESH_TRAIN_FAULTS`` planted and above their bounds.  Returns the
+    ``mesh_train`` record."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, launcher, workers = started
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        out["zamba2_1p2b_2x1"] = zamba_on_a_data_mesh()
+        release_card()
+        batch = mesh_train_batch()
+        out["processes"] = {}
+        faults = {}
+        for key, arch, overrides, mesh in MESH_TRAIN_2L:
+            cfg = mesh_train_config(arch, overrides)
+            planted = [f for f, (case, _, _) in MESH_TRAIN_FAULTS.items()
+                       if case == key]
+            # the plain run first, its records in host memory; then
+            # the ranks, whose results wait on the card
+            t1 = time.perf_counter()
+            ref = mesh_train_reference(cfg, batch)
+            t_ref = time.perf_counter() - t1
+            for fault in [None] + planted:
+                # what this process and the card have free as the ranks
+                # start (the ranks' own peaks come with their results)
+                free_b, _ = torch.cuda.mem_get_info()
+                main_b = torch.cuda.memory_reserved()
+                t1 = time.perf_counter()
+                outs = workers.run({"arch": arch, "overrides": overrides,
+                                    "mesh": mesh, "batch": batch,
+                                    "fault": fault})
+                t_mesh = time.perf_counter() - t1
+                rec = mesh_train_held(cfg, ref, outs)
+                del outs
+                gc.collect()
+                workers.done(mesh[0] * mesh[1])
+                if fault is None:
+                    out["processes"][key] = {
+                        "mesh": list(mesh), "batch": 2,
+                        "seq": MESH_TRAIN_SEQ, "overrides": overrides,
+                        "plain_s": t_ref, "mesh_s": t_mesh,
+                        "plain_peak_bytes": ref["peak_bytes"],
+                        "records_on": ref["records_on"],
+                        "card_free_bytes_at_start": free_b,
+                        "main_reserved_bytes_at_start": main_b, **rec}
+                    log(f"[mesh_train] {key} "
+                        f"{json.dumps(out['processes'][key])}")
+                else:
+                    faults[fault] = rec
+            del ref
+            release_card()
+        for fault, (case, key, bound) in MESH_TRAIN_FAULTS.items():
+            got = faults[fault][key]
+            value = got[1] if isinstance(got, list) else got
+            out.setdefault("faults", {})[fault] = {
+                "case": case, key: got, "bound": bound,
+                "above": value > bound}
+        log(f"[mesh_train] faults {json.dumps(out['faults'])}")
+        out["launcher"] = train_launcher_check(launcher)
+    finally:
+        mesh_train_stop(started)
+    out["route_tp_above_1"] = (
+        f"{MESH_TRAIN_WORLD} processes sharing the card, their collectives "
+        "through staging buffers on it (CUDA IPC) ordered by gloo barriers "
+        "(NCCL refuses two ranks on one device; thread ranks cannot run a "
+        "backward with a collective on a card)")
+    out["s"] = time.perf_counter() - t0
+    checks = {k: out[k]["ok"] for k in ("zamba2_1p2b_2x1", "launcher")}
+    checks.update({k: v["ok"] for k, v in out["processes"].items()})
+    checks.update({f"fault_{k}": v["above"]
+                   for k, v in out["faults"].items()})
+    if not all(checks.values()):
+        fail(f"mesh_train: {checks}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
@@ -4033,6 +4674,9 @@ def main() -> int:
     del tokens_12
     t_train = time.perf_counter() - t0
 
+    # phase 18's launcher and processes start now, beside phase 17
+    mesh_train_started = mesh_train_start()
+
     # 17. serving on a mesh, on the card while phase 15's CPU side works:
     # an NCCL world of one at full width, the launcher under torchrun, and
     # thread ranks of 2-layer float32 copies against the plain runs
@@ -4062,6 +4706,21 @@ def main() -> int:
         fail(f"a kernel was never launched on the KB->training path: "
              f"{launches_train}")
 
+    # 18. training on a mesh, once phase 15's comparisons have freed its
+    # records on the card (33.8 GB): zamba2_1p2b whole at (2, 1), the
+    # launcher under torchrun, and 2-layer float32 copies at tp > 1 and
+    # (2, 2) as processes sharing the card, each against the plain run
+    torch.cuda.empty_cache()
+    KO.reset_launch_counts()
+    mesh_trained = mesh_train_phase(mesh_train_started)
+    launches_mesh_train = KO.launch_counts()
+    for r in rows:
+        r["launches_mesh_train"] = launches_mesh_train.get(r["name"], 0)
+        r["launches"] += r["launches_mesh_train"]
+    log(f"[mesh_train] {mesh_trained['s']:.1f} s; launches "
+        f"{launches_mesh_train} (the mesh training path has no kernel of "
+        f"its own)")
+
     # 16. the analysis layer: counts card against CPU, and counted steps
     # beside measured ones
     t0 = time.perf_counter()
@@ -4085,6 +4744,7 @@ def main() -> int:
     print(json.dumps({"train": {**trained, "card": smi}}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"mesh": {**meshed, "card": smi}}))
+    print(json.dumps({"mesh_train": {**mesh_trained, "card": smi}}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ compiled HLO.  Here the step runs under fake tensors on the CPU
 ``cost.walk`` counts it op by op, with the H100's constants in
 ``analysis.roofline``.  The mesh is one card (``"mesh": "1"``); several
 cards (``--multi-pod``, any larger mesh) are ROADMAP Queue 1 item 12's
-training half.
+last part (the production mesh).
 
     python -m repro_torch.launch.dryrun --arch stablelm_12b --shape decode_32k
     python -m repro_torch.launch.dryrun --sweep       # every cell, resumable
@@ -42,8 +42,9 @@ SWEEP_JOBS = max(1, (os.cpu_count() or 2) // 2)   # cells counted at once
 CELL_TIMEOUT_S = 4 * 3600  # a cell of --sweep still counting then is
                            # recorded as timed out (falcon's train_4k
                            # counts for 3.2 h)
-_SEVERAL = ("several cards in the dry run are ROADMAP.md Queue 1 item 12's "
-            "training half: the dry run counts one H100")
+_SEVERAL = ("several cards in the dry run (the 256/512-device production "
+            "mesh) are ROADMAP.md Queue 1 item 12's last part: the dry run "
+            "counts one H100")
 
 
 def cell_id(arch, shape, multi_pod=False, tag=""):

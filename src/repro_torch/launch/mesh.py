@@ -16,7 +16,9 @@ the other:
 * one process per card (``make_process_mesh``): ``torch.distributed``
   groups for "data" and "model" over the default process group, NCCL on
   the card and gloo on the CPU, started by ``torchrun`` or
-  ``torch.multiprocessing``.  This is the production path.
+  ``torch.multiprocessing``.  This is the production path.  A caller
+  may give ``ProcessMesh`` its own collectives (``comm=``), as processes
+  sharing one card do.
 * ranks as threads of one process on one device (``make_host_mesh``), the
   counterpart of the reference's virtual host devices
   (``--xla_force_host_platform_device_count``): at each collective the
@@ -29,6 +31,28 @@ the reference's per-device HLO holds it.  Over a group of one rank a
 collective returns its input and calls nothing, as XLA drops it: an NCCL
 call on a world of one costs host time and moves nothing (a full-width
 decode step makes 322 of them).
+
+Under autograd the collectives are Megatron's conjugate pairs, the
+transposes of the reference's ``shard_map`` collectives.  The loss is
+replicated over "model" and each rank differentiates it on its own part,
+so the all-reduce of a row-parallel output passes its gradient unchanged,
+and ``fan_out`` (the identity in front of a computation each rank does a
+part of) sums its gradient over "model"; an all-gather's gradient is the
+rank's slice, an all-to-all's the all-to-all back.  Over "data" the loss
+is the sum of the ranks' losses: a sum over "data" also passes its
+gradient unchanged (each rank's loss holds a global term, the MoE aux,
+once), and an all-gather over "data" (FSDP's weights) reduce-scatters its
+gradient.
+
+Thread ranks cannot run a backward that holds a collective on a card:
+autograd runs every node of every thread's backward on one worker thread
+per device, so a rank waiting there for another blocks the thread that
+would run the other's node.  On a CUDA tensor a thread rank's collective
+inside a backward raises at once (``THREAD_BACKWARD``); several ranks on
+one card train at tp > 1 as processes sharing it instead (NCCL refuses
+two ranks on one card).  Data-parallel training
+(tp = 1) puts no collective inside the backward unless its weights are
+FSDP shards, so thread ranks run it on a card.
 """
 from __future__ import annotations
 
@@ -40,8 +64,12 @@ import torch
 
 from repro_torch.analysis import cost as _cost
 
-_ITEM_12 = ("ROADMAP Queue 1 item 12, its training half (several cards: "
-            "the production mesh, ZeRO-1 / FSDP, training on a mesh)")
+_ITEM_12 = ("ROADMAP Queue 1 item 12, its last part (the 256/512-device "
+            "production mesh)")
+THREAD_BACKWARD = ("thread ranks cannot run a collective inside a backward on "
+                   "a CUDA device (autograd runs every thread's device nodes "
+                   "on one worker thread): run the ranks as processes "
+                   "(make_process_mesh over gloo, several on one card)")
 
 
 def _group_ranks(dp: int, tp: int, rank: int, axis) -> tuple:
@@ -80,6 +108,12 @@ class _ThreadGroup:
         return out
 
 
+def _in_backward() -> bool:
+    """Whether this thread is running an autograd backward (a node, or a
+    checkpointed region's recompute)."""
+    return torch._C._current_graph_task_id() != -1
+
+
 class _ThreadComm:
     """The collectives of thread ranks.  Each rank combines the group's
     tensors itself, in rank order, so every rank of a group computes the
@@ -90,7 +124,9 @@ class _ThreadComm:
         self.groups: dict = {}
         self._lock = threading.Lock()
 
-    def _group(self, ranks: tuple) -> _ThreadGroup:
+    def _group(self, ranks: tuple, x) -> _ThreadGroup:
+        if x.is_cuda and _in_backward():
+            raise RuntimeError(THREAD_BACKWARD)
         with self._lock:
             if ranks not in self.groups:
                 self.groups[ranks] = _ThreadGroup(len(ranks))
@@ -107,17 +143,28 @@ class _ThreadComm:
             for t in xs[1:]:
                 out = out + t if op == "sum" else torch.maximum(out, t)
             return out
-        return self._group(ranks).exchange(pos, ("all_reduce", op), x,
-                                           combine)
+        return self._group(ranks, x).exchange(pos, ("all_reduce", op), x,
+                                              combine)
 
     def all_gather(self, x, ranks, pos, dim):
-        return self._group(ranks).exchange(
+        return self._group(ranks, x).exchange(
             pos, ("all_gather", dim), x, lambda xs: torch.cat(xs, dim))
 
     def all_to_all(self, x, ranks, pos):
-        return self._group(ranks).exchange(
+        return self._group(ranks, x).exchange(
             pos, ("all_to_all",), x,
             lambda xs: torch.stack([t[pos] for t in xs]))
+
+    def reduce_scatter(self, x, ranks, pos, dim):
+        def combine(xs):
+            n = xs[0].shape[dim] // len(xs)
+            parts = [t.narrow(dim, pos * n, n) for t in xs]
+            out = parts[0].clone()
+            for t in parts[1:]:
+                out = out + t
+            return out
+        return self._group(ranks, x).exchange(
+            pos, ("reduce_scatter", dim), x, combine)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +175,7 @@ class _ProcessComm:
     groups made for every "data" and "model" group of the mesh (every
     process makes every group, in one order, as ``new_group`` asks)."""
 
-    def __init__(self, dp: int, tp: int):
+    def __init__(self, dp: int, tp: int, procs: tuple):
         import torch.distributed as dist
         self.dist = dist
         self.groups = {}
@@ -138,8 +185,11 @@ class _ProcessComm:
                 ranks = _group_ranks(dp, tp, r, axis)
                 if ranks not in seen:
                     seen.add(ranks)
-                    self.groups[ranks] = dist.new_group(list(ranks))
-        self.groups[tuple(range(dp * tp))] = dist.group.WORLD
+                    self.groups[ranks] = dist.new_group(
+                        [procs[q] for q in ranks])
+        self.groups[tuple(range(dp * tp))] = dist.group.WORLD \
+            if len(procs) == dist.get_world_size() \
+            else dist.new_group(list(procs))
 
     def all_reduce(self, x, ranks, pos, op):
         out = x.clone()
@@ -166,6 +216,83 @@ class _ProcessComm:
         out = torch.empty_like(x)
         self.dist.all_to_all_single(out, x, group=self.groups[ranks])
         return out
+
+    def reduce_scatter(self, x, ranks, pos, dim):
+        n = len(ranks)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+        self.dist.reduce_scatter_tensor(out, xt, group=self.groups[ranks])
+        return out.movedim(0, dim).contiguous()   # as thread ranks give it
+
+
+# ---------------------------------------------------------------------------
+# the collectives under autograd
+# ---------------------------------------------------------------------------
+def _recording(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumReduce(torch.autograd.Function):
+    """The all-reduce (sum) of a partial result: its gradient passes
+    unchanged (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, mcx, axis):
+        ctx.mcx, ctx.axis = mcx, axis
+        return mcx._collective("all_reduce", x, axis, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _FanOut(torch.autograd.Function):
+    """The identity in front of a computation each rank of ``axis`` does a
+    part of: its gradient is summed over ``axis`` (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, mcx, axis):
+        ctx.mcx, ctx.axis = mcx, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mcx._collective("all_reduce", g, ctx.axis, "sum"), \
+            None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The all-gather along ``dim``: the gradient is reduce-scattered over
+    the "data" part of ``axis`` and the rank keeps its slice."""
+
+    @staticmethod
+    def forward(ctx, x, mcx, dim, axis):
+        ctx.mcx, ctx.dim, ctx.axis, ctx.n = mcx, dim, axis, x.shape[dim]
+        return mcx._collective("all_gather", x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mcx, axes = ctx.mcx, ctx.axis
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        if "data" in axes:       # the rank's data block (ranks data major)
+            g = mcx.reduce_scatter(g, ctx.dim, "data")
+        i = mcx.model_index if "model" in axes else 0
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all over axis 0: its gradient goes back by the same
+    all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, mcx, axis):
+        ctx.mcx, ctx.axis = mcx, axis
+        return mcx._collective("all_to_all", x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mcx._collective("all_to_all", g.contiguous(),
+                                   ctx.axis), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -221,37 +348,69 @@ class MeshCtx:
         return slice(self.data_index * k, (self.data_index + 1) * k)
 
     # -- collectives ---------------------------------------------------------
-    def all_reduce(self, x, axis="model", op: str = "sum"):
-        """The sum (or ``op="max"``) of ``x`` over the ranks of ``axis``."""
+    def _collective(self, kind: str, x, axis, *args):
+        """``kind`` over the ranks of ``axis``, reported to the cost walk;
+        no autograd (the ``Function``s above call it)."""
         ranks = _group_ranks(self.dp_size, self.tp_size, self.rank, axis)
-        if len(ranks) == 1:
+        n = len(ranks)
+        size = x.numel() * x.element_size()
+        _cost.collective({"all_reduce": "all-reduce",
+                          "all_gather": "all-gather",
+                          "all_to_all": "all-to-all",
+                          "reduce_scatter": "reduce-scatter"}[kind],
+                         n * size if kind == "all_gather" else size)
+        return getattr(self.comm, kind)(x, ranks, ranks.index(self.rank),
+                                        *args)
+
+    def all_reduce(self, x, axis="model", op: str = "sum"):
+        """The sum (or ``op="max"``) of ``x`` over the ranks of ``axis``.
+        Under autograd a sum passes its gradient unchanged; a max carries
+        none."""
+        if self.axis_size(axis) == 1:
             return x
-        _cost.collective("all-reduce", x.numel() * x.element_size())
-        return self.comm.all_reduce(x, ranks, ranks.index(self.rank), op)
+        if op == "sum" and _recording(x):
+            return _SumReduce.apply(x, self, axis)
+        return self._collective("all_reduce", x.detach(), axis, op)
+
+    def fan_out(self, x, axis="model"):
+        """``x``, the same on every rank of ``axis``, as it enters a
+        computation each rank does a part of: the identity, whose gradient
+        is summed over ``axis``."""
+        if self.axis_size(axis) == 1 or not _recording(x):
+            return x
+        return _FanOut.apply(x, self, axis)
 
     def all_gather(self, x, dim: int, axis="model"):
         """The ranks' ``x`` of ``axis`` concatenated along ``dim``, in rank
         order."""
-        ranks = _group_ranks(self.dp_size, self.tp_size, self.rank, axis)
-        if len(ranks) == 1:
+        if self.axis_size(axis) == 1:
             return x
-        _cost.collective("all-gather",
-                         len(ranks) * x.numel() * x.element_size())
-        return self.comm.all_gather(x, ranks, ranks.index(self.rank),
-                                    dim % x.dim())
+        dim = dim % x.dim()
+        if _recording(x):
+            return _Gather.apply(x, self, dim, axis)
+        return self._collective("all_gather", x, axis, dim)
 
     def all_to_all(self, x, axis="model"):
         """x (n, ...), n the size of ``axis``: row j goes to the group's
         rank j, and row i of the result came from rank i (the reference's
         tiled ``all_to_all`` with split and concat axis 0)."""
-        ranks = _group_ranks(self.dp_size, self.tp_size, self.rank, axis)
-        if x.shape[0] != len(ranks):
+        n = self.axis_size(axis)
+        if x.shape[0] != n:
             raise ValueError(f"all_to_all of {tuple(x.shape)} over "
-                             f"{len(ranks)} ranks")
-        if len(ranks) == 1:
+                             f"{n} ranks")
+        if n == 1:
             return x
-        _cost.collective("all-to-all", x.numel() * x.element_size())
-        return self.comm.all_to_all(x, ranks, ranks.index(self.rank))
+        if _recording(x):
+            return _AllToAll.apply(x, self, axis)
+        return self._collective("all_to_all", x, axis)
+
+    def reduce_scatter(self, x, dim: int, axis="data"):
+        """The sum of ``x`` over the ranks of ``axis``, of which the rank
+        keeps its slice along ``dim`` (no autograd)."""
+        if self.axis_size(axis) == 1:
+            return x
+        return self._collective("reduce_scatter", x.detach(), axis,
+                                dim % x.dim())
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +462,24 @@ class HostMesh:
 
 class ProcessMesh:
     """dp x tp ranks, one per process of the default process group
-    (``torch.distributed.init_process_group``, made by the caller); the
-    groups of both axes are made here, by every process."""
+    (``torch.distributed.init_process_group``, made by the caller), or of
+    the processes ``procs`` of it (mesh rank i is process ``procs[i]``);
+    the groups of both axes are made here, by every process of the group
+    (``new_group``'s rule), and ``rank`` is None on a process outside the
+    mesh.  ``comm`` makes the collectives from ``(dp, tp, procs)``; by
+    default they are ``torch.distributed``'s over the groups' backend."""
 
-    def __init__(self, dp: int, tp: int):
+    def __init__(self, dp: int, tp: int, procs=None, comm=None):
         import torch.distributed as dist
-        if dp * tp != dist.get_world_size():
-            raise ValueError(f"a {dp} x {tp} mesh over "
-                             f"{dist.get_world_size()} processes")
+        procs = tuple(range(dist.get_world_size()) if procs is None
+                      else procs)
+        if dp * tp != len(procs):
+            raise ValueError(f"a {dp} x {tp} mesh over {len(procs)} "
+                             f"processes")
         self.shape = (dp, tp)
-        self.rank = dist.get_rank()
-        self.comm = _ProcessComm(dp, tp)
+        me = dist.get_rank()
+        self.rank = procs.index(me) if me in procs else None
+        self.comm = (comm or _ProcessComm)(dp, tp, procs)
 
     @property
     def size(self) -> int:

@@ -21,7 +21,12 @@ sharded program, on that rank's slice of the weights
 * decode keeps the cache split over the sequence across "model": each rank
   writes the new row only where ``pos`` falls in its chunk, attends over
   its chunk with every head (gathered), and the ranks merge by
-  log-sum-exp (``merge_over_ranks``) before the row-parallel ``wo``.
+  log-sum-exp (``merge_over_ranks``) before the row-parallel ``wo``;
+* under autograd, what every rank holds whole and each rank reads only a
+  part of (the input of a head- or column-split product, a K/V bias or
+  projection every rank holds whole, the query / key norms) enters through
+  ``fan_out``, whose gradient is summed over "model": so each rank's
+  gradient of a weight it holds whole is the whole gradient.
 
 Flags that only change sharding (``zero1``, ``fsdp``) leave the forward
 pass as it is.  ``flash_vjp`` runs training and prefill attention through
@@ -67,6 +72,13 @@ def splits(n: int, mcx) -> bool:
     """Whether a dim of full size ``n`` is split over "model" (the
     reference's ``fits``: tp divides it)."""
     return mcx is not None and n % mcx.tp_size == 0
+
+
+def fan_out(x, mcx):
+    """``x`` (the same on every rank) as it enters a computation each rank
+    of "model" does a part of: its gradient is summed over "model"
+    (``MeshCtx.fan_out``; the identity without a mesh or autograd)."""
+    return x if mcx is None else mcx.fan_out(x)
 
 
 def local_part(t, dim: int, mcx):
@@ -192,6 +204,8 @@ def apply_mlp(p, x, cfg, mcx=None, d_ff=None):
     whose tp divides the width, the rank holds columns of ``w_gate`` /
     ``w_up`` / ``b_up`` and rows of ``w_down``, and the partial outputs
     are summed over "model" before ``b_down``."""
+    if splits(d_ff or cfg.d_ff, mcx):
+        x = fan_out(x, mcx)
     if cfg.mlp_type == "swiglu":
         g = torch.einsum("...d,df->...f", x, p["w_gate"])
         u = torch.einsum("...d,df->...f", x, p["w_up"])
@@ -436,7 +450,8 @@ def repeat_kv(x, h_out: int):
 def _kv_bias(p, name, kv_split, mcx):
     """A K/V bias (replicated over "model") for the K/V heads the rank
     computes."""
-    return local_part(p[name], 0, mcx) if kv_split else p[name]
+    b = fan_out(p[name], mcx)
+    return local_part(b, 0, mcx) if kv_split else b
 
 
 def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False,
@@ -449,16 +464,20 @@ def attention_fwd(p, x, cfg, *, positions, causal=True, return_kv=False,
     v) (B,S,KV_l,hd), KV_l the K/V heads the rank computed."""
     H, KV = cfg.num_heads, cfg.num_kv_heads
     kv_split = splits(KV, mcx)
+    x = fan_out(x, mcx)
+    wk, wv = p["wk"], p["wv"]
+    if not kv_split:
+        wk, wv = fan_out(wk, mcx), fan_out(wv, mcx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if "bq" in p:
         q = q + p["bq"]
         k = k + _kv_bias(p, "bk", kv_split, mcx)
         v = v + _kv_bias(p, "bv", kv_split, mcx)
     if "q_norm" in p:
-        q = _qk_norm(q, p["q_norm"])
-        k = _qk_norm(k, p["k_norm"])
+        q = _qk_norm(q, fan_out(p["q_norm"], mcx))
+        k = _qk_norm(k, fan_out(p["k_norm"], mcx))
     if cfg.attn_type != "nope" and cfg.rope_theta and not cfg.is_encoder:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -586,17 +605,20 @@ def mla_fwd(p, x, cfg, *, positions, return_kv=False, mcx=None):
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     kvr = cfg.kv_lora_rank
+    part = fan_out if splits(cfg.num_heads, mcx) else (lambda t, m: t)
     q_lat = _rms(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_a_norm"])
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])   # (B,S,H,dn+dr)
-    H = q.shape[2]
+    q = torch.einsum("bsr,rhk->bshk", part(q_lat, mcx), p["wq_b"])
+    H = q.shape[2]                                        # (B,S,H,dn+dr)
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])     # (B,S,kvr+dr)
     c_kv = _rms(kv_a[..., :kvr], p["kv_a_norm"])
     k_rope = apply_rope(kv_a[..., None, kvr:], positions, cfg.rope_theta)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"])
+    c_in = part(c_kv, mcx)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_in, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_in, p["wv_b"])
     q_full = torch.cat([q[..., :dn], q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    k_full = torch.cat([k_nope, part(k_rope, mcx).expand(B, S, H, dr)],
+                       dim=-1)
     attend = flash_attention_vjp if cfg.flash_vjp else flash_attention
     out = attend(q_full, k_full, v, causal=True, chunk=cfg.attn_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])

@@ -22,6 +22,11 @@ replicated, as the reference lays them out:
   and the load-balancing loss is a mean over the ranks; otherwise the
   ``psum`` path, as on the reference.
 
+Under autograd, the tokens and routing weights that enter a rank's part
+of the experts, the router where each rank routes its own share (a2a)
+and the input of split shared experts pass ``fan_out``: their gradients
+are summed over "model".
+
 The combine adds a token's ``k`` contributions in order, one (T, d) add
 per rank: the reference's sequential scatter-add on the CPU, and on the
 card a fixed order (a scatter-add there uses atomics, whose order, and so
@@ -181,8 +186,10 @@ def moe_fwd(p, x, cfg, mcx=None):
         y, aux = _moe_psum(p, xt, cfg, mcx, T_all)
     y = y.view(B, S, d)
     if "ws_gate" in p:
-        sh = _shared_experts(p, x)
-        y = y + (mcx.all_reduce(sh) if shared_split else sh)
+        if shared_split:
+            y = y + mcx.all_reduce(_shared_experts(p, mcx.fan_out(x)))
+        else:
+            y = y + _shared_experts(p, x)
     return y, aux
 
 
@@ -217,9 +224,13 @@ def _moe_psum(p, xt, cfg, mcx, T_all: int):
         aux = _aux_over(top_e, probs, cfg, mcx, "data")
     n_exp = E // mcx.tp_size if L.splits(E, mcx) else E
     lo = mcx.model_index * n_exp if n_exp != E else 0
-    y = _dispatch(xt, p, top_p, top_e, cfg, capacity(T_all, cfg), lo, n_exp)
     if n_exp != E:
+        y = _dispatch(mcx.fan_out(xt), p, mcx.fan_out(top_p), top_e, cfg,
+                      capacity(T_all, cfg), lo, n_exp)
         y = mcx.all_reduce(y)
+    else:
+        y = _dispatch(xt, p, top_p, top_e, cfg, capacity(T_all, cfg), lo,
+                      n_exp)
     if split_here:
         y = mcx.all_gather(y, 0, axis="data")
     return y, aux
@@ -241,9 +252,9 @@ def _moe_a2a(p, xt, cfg, mcx):
     axis = "model" if mcx.batch_split else ("data", "model")
     n = mcx.axis_size(axis)
     T_loc = T // n
-    xt_l = xt.view(n, T_loc, d)[mcx.axis_index(axis)]
+    xt_l = mcx.fan_out(xt).view(n, T_loc, d)[mcx.axis_index(axis)]
     C = capacity(T_loc, cfg)
-    top_p, top_e, probs, _ = route(p["router"], xt_l, cfg)
+    top_p, top_e, probs, _ = route(mcx.fan_out(p["router"]), xt_l, cfg)
     aux = _aux_over(top_e, probs, cfg, mcx, ("data", "model"))
     kept, slot = assign_slots(top_e, E, C)
     flat_t = torch.arange(T_loc, device=xt.device).repeat_interleave(k)

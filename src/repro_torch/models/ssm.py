@@ -10,6 +10,17 @@ upcast and contracted in float32, and its casts back to the activation
 dtype are kept where it makes them.
 
 Decode carries ``(conv_state, ssm_state)`` per layer.
+
+On a mesh (``mcx``, the rank's ``MeshCtx``) Mamba-1 splits ``d_inner``
+over "model" where tp divides it, as the reference's rules do: the rank
+holds its channels of ``conv_w``, ``conv_b``, ``dt_bias``, ``D``,
+``A_log``, ``dt_proj`` (columns), ``out_proj`` and ``x_proj`` (rows), and
+of ``in_proj`` its channels of x and its channels of z (``[x_r | z_r]``,
+``models.model.shard_leaf``).  ``x_proj``'s rows make (dt_r, B, C)
+partial sums, all-reduced over "model" before ``dt_proj`` and the scan;
+``out_proj`` is row-parallel, then an all-reduce; the conv and scan
+states are the rank's channels.  Mamba-2 (the hybrid) keeps every weight
+whole on every rank and runs the SSD in full, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import normal, pad_seq, param, torch_dtype
+from repro_torch.models.layers import (fan_out, normal, pad_seq, param,
+                                       splits, torch_dtype)
 
 # Mamba-1's prefill scans at most this many float32 elements of shape
 # (B, S, channels, N) at a time (1 GiB each): channels are independent until
@@ -192,20 +204,30 @@ def _channel_slices(B, S, C, N, budget):
     return [slice(lo, min(lo + step, C)) for lo in range(0, C, step)]
 
 
-def mamba1_fwd(p, x, cfg, state=None):
+def _split(cfg, mcx):
+    """The rank's context where Mamba-1's ``d_inner`` is split over
+    "model", else None."""
+    return mcx if splits(cfg.d_inner, mcx) and mcx.tp_size > 1 else None
+
+
+def mamba1_fwd(p, x, cfg, state=None, mcx=None):
     """x: (B,S,d) -> (B,S,d).  state=(conv_state, h) enables streaming:
     then returns (out, (conv_tail, h of the last position)).  The scan and
     its readout run over slices of ``d_inner`` of at most
-    ``SCAN_SLICE_ELEMS`` elements each; no value depends on the slice."""
+    ``SCAN_SLICE_ELEMS`` elements each; no value depends on the slice.  On
+    a mesh, over the rank's channels (the states too)."""
     B, S, d = x.shape
-    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    mcx = _split(cfg, mcx)
+    di, N, R = p["D"].shape[0], cfg.ssm_state, cfg.ssm_dt_rank
+    xz = torch.einsum("bsd,de->bse", fan_out(x, mcx), p["in_proj"])
     xin, z = xz.chunk(2, dim=-1)
     conv_state = state[0] if state is not None else None
     xin, conv_tail = causal_conv1d(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = F.silu(xin.float()).to(x.dtype)
 
     proj = torch.einsum("bsc,ce->bse", xin, p["x_proj"])
+    if mcx is not None:
+        proj = mcx.fan_out(mcx.all_reduce(proj))
     dt_r, Bmat, Cmat = proj.split([R, N, N], dim=-1)
     dt = torch.einsum("bsr,rc->bsc", dt_r, p["dt_proj"]).float()
     dt = _softplus(dt + p["dt_bias"])                      # (B,S,di)
@@ -228,21 +250,27 @@ def mamba1_fwd(p, x, cfg, state=None):
     y = y + p["D"] * xf
     y = y * F.silu(z.float())
     out = torch.einsum("bsc,cd->bsd", y.to(x.dtype), p["out_proj"])
+    if mcx is not None:
+        out = mcx.all_reduce(out)
     if state is not None:
         return out, (conv_tail, torch.cat(h_last, dim=1))
     return out
 
 
-def mamba1_step(p, x, cfg, state):
+def mamba1_step(p, x, cfg, state, mcx=None):
     """Single decode step.  x: (B,d); state=(conv_state (B,K-1,di),
-    h (B,di,N)).  Returns (out (B,d), new state)."""
+    h (B,di,N)), on a mesh the rank's channels.  Returns (out (B,d), new
+    state)."""
     conv_state, h = state
+    mcx = _split(cfg, mcx)
     N, R = cfg.ssm_state, cfg.ssm_dt_rank
     xz = torch.einsum("bd,de->be", x, p["in_proj"])
     xin, z = xz.chunk(2, dim=-1)
     xin, conv_state = conv1d_step(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = F.silu(xin.float()).to(x.dtype)
     proj = torch.einsum("bc,ce->be", xin, p["x_proj"])
+    if mcx is not None:
+        proj = mcx.all_reduce(proj)
     dt_r, Bv, Cv = proj.split([R, N, N], dim=-1)
     dt = torch.einsum("br,rc->bc", dt_r, p["dt_proj"]).float()
     dt = _softplus(dt + p["dt_bias"])
@@ -254,6 +282,8 @@ def mamba1_step(p, x, cfg, state):
     y = y + p["D"] * xin.float()
     y = y * F.silu(z.float())
     out = torch.einsum("bc,cd->bd", y.to(x.dtype), p["out_proj"])
+    if mcx is not None:
+        out = mcx.all_reduce(out)
     return out, (conv_state, h)
 
 

@@ -163,7 +163,7 @@ class MTPHead(nn.Module):
     ``ln_e``), concatenated and projected (``proj`` (2d, d)), then one more
     layer (``layer``: MoE in a MoE model, else dense)."""
 
-    def __init__(self, cfg, generator):
+    def __init__(self, cfg, generator, experts=None):
         super().__init__()
         dt, dev = L.torch_dtype(cfg.dtype), generator.device
         self.proj = L.param(L.normal((2 * cfg.d_model, cfg.d_model),
@@ -171,7 +171,16 @@ class MTPHead(nn.Module):
         self.ln_h = L.init_norm(cfg, dev)
         self.ln_e = L.init_norm(cfg, dev)
         self.layer = init_layer(cfg, generator,
-                                "moe" if cfg.family == "moe" else "dense")
+                                "moe" if cfg.family == "moe" else "dense",
+                                experts)
+
+    def items(self):
+        """(name, part) pairs, as a ``ModuleDict`` gives them."""
+        return [(k, getattr(self, k)) for k in ("proj", "ln_h", "ln_e",
+                                                "layer")]
+
+    def __getitem__(self, key):
+        return getattr(self, key)
 
 
 def _kept(module: nn.Module, prefix: str, keep) -> nn.Module:
@@ -214,9 +223,12 @@ def init_stack(cfg, generator, mtp: bool = False, keep=None,
                       else _kept(layer, f"layers.{i}", keep))
     params["layers"] = nn.ModuleList(layers)
     if cfg.family == "hybrid":
-        params["shared"] = init_shared_block(cfg, generator)
+        shared = init_shared_block(cfg, generator)
+        params["shared"] = shared if keep is None \
+            else _kept(shared, "shared", keep)
     if mtp and cfg.mtp_depth:
-        params["mtp"] = MTPHead(cfg, generator)
+        head = MTPHead(cfg, generator, experts)
+        params["mtp"] = head if keep is None else _kept(head, "mtp", keep)
     return params
 
 
@@ -249,29 +261,40 @@ def _maybe_remat(f, cfg):
     return lambda *args: checkpoint(f, *args, use_reentrant=False, **kw)
 
 
-def forward_train(layers, x, cfg, positions, shared=None):
+def forward_train(layers, x, cfg, positions, shared=None, mcx=None,
+                  view=None):
     """x: hidden after embedding (B,S,d).  Returns (hidden, aux): aux the
     sum of the MoE layers' load-balancing losses (0.0 without MoE).  The
     hybrid's shared block runs after each layer of ``hybrid_attn_slots``
     (a branch on the layer index where the reference has ``lax.cond``);
-    autograd adds its gradient over every use."""
+    autograd adds its gradient over every use.  On a mesh (``mcx``) each
+    layer runs the rank's part; ``view(module, prefix)`` gives a layer's
+    weights as the layer functions read them (FSDP's gathered shards),
+    called inside the layer's body so that a remat recompute gathers
+    again."""
     causal = not cfg.is_encoder
     aux_total = 0.0
+    see = view or (lambda module, prefix: module)
     if cfg.family in ("ssm", "hybrid"):
-        fwd = SSM.mamba1_fwd if cfg.family == "ssm" else SSM.mamba2_fwd
         slots = _slot_of(cfg)
         for i, lp in enumerate(layers):
-            def body(h, lp=lp, attend=i in slots):
-                h = h + fwd(lp["ssm"], L.apply_norm(lp["ln"], h, cfg), cfg)
+            def body(h, lp=lp, i=i, attend=i in slots):
+                lv = see(lp, f"layers.{i}")
+                hn = L.apply_norm(lv["ln"], h, cfg)
+                if cfg.family == "ssm":
+                    h = h + SSM.mamba1_fwd(lv["ssm"], hn, cfg, mcx=mcx)
+                else:
+                    h = h + SSM.mamba2_fwd(lv["ssm"], hn, cfg)
                 if attend:
-                    h, _ = attn_block_fwd(shared, h, cfg, positions,
-                                          causal=causal)
+                    h, _ = attn_block_fwd(see(shared, "shared"), h, cfg,
+                                          positions, causal=causal, mcx=mcx)
                 return h
             x = _maybe_remat(body, cfg)(x)
         return x, aux_total
-    for lp in layers:
-        def body(h, lp=lp):
-            out = attn_block_fwd(lp, h, cfg, positions, causal=causal)
+    for i, lp in enumerate(layers):
+        def body(h, lp=lp, i=i):
+            out = attn_block_fwd(see(lp, f"layers.{i}"), h, cfg, positions,
+                                 causal=causal, mcx=mcx)
             return (out, 0.0) if cfg.parallel_block else out
         x, da = _maybe_remat(body, cfg)(x)
         aux_total = aux_total + da
@@ -281,16 +304,18 @@ def forward_train(layers, x, cfg, positions, shared=None):
 # ---------------------------------------------------------------------------
 # prefill: forward + emit caches
 # ---------------------------------------------------------------------------
-def cache_shapes(cfg, B: int, S: int) -> dict:
+def cache_shapes(cfg, B: int, S: int, tp: int = 1) -> dict:
     """The shape of each cache of ``cfg`` for B sequences of S positions
     (the reference's ``Model.cache_specs``): a tuple of shapes for the
-    ``"ssm"`` states (conv in the config's dtype, h in float32)."""
+    ``"ssm"`` states (conv in the config's dtype, h in float32).  ``tp``:
+    a rank's share of Mamba-1's channels where tp divides ``d_inner``."""
     n = cfg.num_layers
     if cfg.family in ("ssm", "hybrid"):
         K = cfg.ssm_conv
         if cfg.family == "ssm":
-            conv = (n, B, K - 1, cfg.d_inner)
-            h = (n, B, cfg.d_inner, cfg.ssm_state)
+            di = cfg.d_inner // tp if cfg.d_inner % tp == 0 else cfg.d_inner
+            conv = (n, B, K - 1, di)
+            h = (n, B, di, cfg.ssm_state)
             return {"ssm": (conv, h)}
         conv = (n, B, K - 1, cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state)
         h = (n, B, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state)
@@ -304,11 +329,11 @@ def cache_shapes(cfg, B: int, S: int) -> dict:
     return {"k": shape, "v": shape}
 
 
-def _empty_caches(x, cfg, B, S) -> dict:
+def _empty_caches(x, cfg, B, S, tp=1) -> dict:
     """Caches of ``cache_shapes`` on x's device, in x's dtype (the SSM
     states h in float32)."""
     out = {}
-    for name, shape in cache_shapes(cfg, B, S).items():
+    for name, shape in cache_shapes(cfg, B, S, tp).items():
         if name == "ssm":
             conv, h = shape
             out[name] = (x.new_empty(conv),
@@ -339,29 +364,35 @@ def _to_seq_split(name, rows, cfg, mcx):
 def forward_prefill(layers, x, cfg, positions, shared=None, mcx=None):
     """x: (B,S,d) after embedding; ``shared`` is the hybrid's shared block.
     Returns (hidden, caches), the K/V caches exactly as long as the prompt,
-    as on the reference.  On a mesh (``mcx``) the attention families keep
-    the rank's chunk of each cache, ceil(S / tp) positions (zero past S),
-    handed over from the head split layer by layer; the ``ssm`` and
-    ``hybrid`` stacks run at tp = 1 only (``models.model.build``)."""
+    as on the reference.  On a mesh (``mcx``) the attention caches (the
+    hybrid's shared block's too) are the rank's chunk of the sequence,
+    ceil(S / tp) positions (zero past S), handed over from the head split
+    layer by layer; Mamba-1's states are the rank's channels, Mamba-2's
+    whole."""
     B, S = x.shape[:2]
+    tp = L.tp_of(mcx)
+    S_loc = -(-S // tp)
+    caches = _empty_caches(x, cfg, B, S_loc, tp)
     if cfg.family in ("ssm", "hybrid"):
-        mcx = None
-    S_loc = S if mcx is None else -(-S // mcx.tp_size)
-    caches = _empty_caches(x, cfg, B, S_loc)
-    if cfg.family in ("ssm", "hybrid"):
-        fwd = SSM.mamba1_fwd if cfg.family == "ssm" else SSM.mamba2_fwd
         conv, h = caches["ssm"]
         slots = _slot_of(cfg)
         for i, lp in enumerate(layers):
             hn = L.apply_norm(lp["ln"], x, cfg)
             zero = (conv.new_zeros(conv.shape[1:]), h.new_zeros(h.shape[1:]))
-            y, (conv[i], h[i]) = fwd(lp["ssm"], hn, cfg, state=zero)
+            if cfg.family == "ssm":
+                y, (conv[i], h[i]) = SSM.mamba1_fwd(lp["ssm"], hn, cfg,
+                                                    state=zero, mcx=mcx)
+            else:
+                y, (conv[i], h[i]) = SSM.mamba2_fwd(lp["ssm"], hn, cfg,
+                                                    state=zero)
             x = x + y
             if i in slots:
-                x, _, (k, v) = attn_block_fwd(shared, x, cfg, positions,
-                                              causal=True, return_kv=True)
-                caches["k"][slots[i]] = k
-                caches["v"][slots[i]] = v
+                x, _, kv = attn_block_fwd(shared, x, cfg, positions,
+                                          causal=True, return_kv=True,
+                                          mcx=mcx)
+                for name, c in zip(("k", "v"), kv):
+                    caches[name][slots[i]] = c if mcx is None else \
+                        _to_seq_split(name, c, cfg, mcx)
         return x, caches
     for i, lp in enumerate(layers):
         out = attn_block_fwd(lp, x, cfg, positions, causal=not cfg.is_encoder,
@@ -382,18 +413,22 @@ def forward_decode(layers, x, caches, pos, cfg, shared=None, mcx=None):
     chunk), into its slice of ``caches`` in place; returns (hidden,
     caches)."""
     if cfg.family in ("ssm", "hybrid"):
-        step = SSM.mamba1_step if cfg.family == "ssm" else SSM.mamba2_step
         conv, h = caches["ssm"]
         slots = _slot_of(cfg)
         for i, lp in enumerate(layers):
             hn = L.apply_norm(lp["ln"], x[:, 0], cfg)
-            y, (conv[i], h[i]) = step(lp["ssm"], hn, cfg, (conv[i], h[i]))
+            if cfg.family == "ssm":
+                y, (conv[i], h[i]) = SSM.mamba1_step(
+                    lp["ssm"], hn, cfg, (conv[i], h[i]), mcx)
+            else:
+                y, (conv[i], h[i]) = SSM.mamba2_step(lp["ssm"], hn, cfg,
+                                                     (conv[i], h[i]))
             x = x + y[:, None]
             if i in slots:
                 si = slots[i]
                 x, _ = attn_block_decode(shared, x, {"k": caches["k"][si],
                                                      "v": caches["v"][si]},
-                                         pos, cfg)
+                                         pos, cfg, mcx)
         return x, caches
     for i, lp in enumerate(layers):
         x, _ = attn_block_decode(lp, x, {n: c[i] for n, c in caches.items()},

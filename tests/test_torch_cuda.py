@@ -1041,3 +1041,107 @@ def test_an_nccl_world_of_one_serves_as_no_mesh(card):
         dist.destroy_process_group()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh on the card
+# ---------------------------------------------------------------------------
+def _train_step_on(mcx, cfg, batch, device):
+    """One ``train_step`` of ``cfg`` (seed 0) as the rank ``mcx`` on
+    ``device``: its metrics and its weights gathered whole."""
+    from repro_torch.models.model import build
+    mdl = build(cfg, device, torch.Generator(device).manual_seed(0),
+                training=True, mesh=mcx)
+    _, met = mdl.train_step(mdl.init_opt_state(), batch, 0)
+    return {k: float(v) for k, v in met.items()}, mdl.global_weights()
+
+
+def _smoke_batch(cfg, device, rows=4, seq=32):
+    tok = torch.randint(0, cfg.vocab_size, (rows, seq + 1), device=device,
+                        generator=torch.Generator(device).manual_seed(1))
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def _held_against(got, want):
+    met, w = got
+    for k in ("loss", "ce", "grad_norm"):
+        assert met[k] == pytest.approx(want[0][k], rel=1e-5), k
+    for n, t in want[1].items():
+        torch.testing.assert_close(w[n], t, atol=1e-6, rtol=0)
+
+
+def test_thread_ranks_raise_at_once_for_a_backward_on_the_card(card):
+    """Thread ranks at tp = 2 on the card: the backward's first collective
+    raises at once (autograd runs every thread's device nodes on one
+    worker thread, so a rank waiting there would stall the others until
+    ``WAIT_S``)."""
+    import time
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_smoke_config("stablelm_12b").with_(dtype="float32")
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="thread ranks cannot run"):
+        make_host_mesh(1, 2).run(_train_step_on, cfg,
+                                 _smoke_batch(cfg, card), card)
+    assert time.perf_counter() - t0 < 60
+
+
+def test_data_parallel_thread_ranks_train_on_the_card(card):
+    """At (2, 1) no collective runs inside the backward: thread ranks
+    train on the card, equal to one device (float32, TF32 off)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("zamba2_1p2b").with_(dtype="float32")
+    batch = _smoke_batch(cfg, card)
+    want = _train_step_on(None, cfg, batch, card)
+    _held_against(make_host_mesh(2, 1).run(_train_step_on, cfg, batch,
+                                           card)[0], want)
+
+
+def _gloo_rank_on_the_card(rank, port, out, card):
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch import mesh as MESH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    cfg = get_smoke_config("stablelm_12b").with_(dtype="float32")
+    from torch_card_comm import CardComm
+    mesh = MESH.ProcessMesh(1, 2, comm=CardComm if card else None)
+    got = _train_step_on(MESH.make_mesh_ctx(mesh), cfg,
+                         _smoke_batch(cfg, "cuda"), "cuda")
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump((got[0], {n: t.cpu() for n, t in got[1].items()}),
+                        f)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("through_card", [False, True],
+                         ids=["gloo", "card_buffers"])
+def test_gloo_processes_train_at_tp_2_on_one_card(card, tmp_path,
+                                                  through_card):
+    """tp > 1 on one card: two processes of a gloo group (NCCL refuses two
+    ranks on one device) share the card and give one device's step, their
+    collectives carried by gloo (which takes CUDA tensors) or through
+    staging buffers on the card (``ProcessMesh(..., comm=CardComm)``)."""
+    import pickle
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = tmp_path / "step.pkl"
+    torch.multiprocessing.start_processes(
+        _gloo_rank_on_the_card, args=(port, str(out), through_card),
+        nprocs=2, join=True, start_method="spawn")
+    from repro_torch.configs.base import get_smoke_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("stablelm_12b").with_(dtype="float32")
+    met, w = _train_step_on(None, cfg, _smoke_batch(cfg, card), card)
+    with open(out, "rb") as f:
+        got = pickle.load(f)     # written by the processes above
+    _held_against(got, (met, {n: t.cpu() for n, t in w.items()}))

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py", "tests/torch_card_comm.py"]))
 def test_no_source_imports_jax_or_repro(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
 

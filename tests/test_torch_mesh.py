@@ -10,10 +10,11 @@ seed and decodes GEN steps on caches zero-padded to S + GEN, and returns
 its parameters, logits and caches as numpy.  The port runs each mesh as
 thread ranks (``make_host_mesh``), each rank loading
 ``params_from_reference(tree, cfg, mesh=its context)`` and fed the
-reference's tokens.  Float32 throughout; ``TOL`` is
-``test_torch_serve.py``'s: every greedy token equal, logits and each
-rank's cache rows (its batch rows, its chunk of the sequence) within atol
-= rtol = 1e-4.
+reference's tokens (Mamba-1's and the hybrid's caches included: a
+rank's states are its channels of Mamba-1's, and Mamba-2's whole).
+Float32 throughout; ``TOL`` is ``test_torch_serve.py``'s: every greedy
+token equal, logits and each rank's cache rows (its batch rows, its chunk
+of the sequence) within atol = rtol = 1e-4.
 """
 import os
 import pathlib
@@ -42,7 +43,9 @@ CASES = {"dense": ("stablelm_12b", {}),
          "moe_psum": ("qwen3_moe_30b_a3b", {"moe_dispatch": "psum"}),
          "moe_a2a": ("qwen3_moe_30b_a3b", {"moe_dispatch": "a2a"}),
          "mla": ("deepseek_v3_671b", {}),
-         "encoder": ("hubert_xlarge", {})}
+         "encoder": ("hubert_xlarge", {}),
+         "ssm": ("falcon_mamba_7b", {}),
+         "hybrid": ("zamba2_1p2b", {})}
 MESHES = [(1, 2), (2, 2), (1, 4)]
 
 REFERENCE_RUN = textwrap.dedent("""
@@ -95,8 +98,9 @@ REFERENCE_RUN = textwrap.dedent("""
                    "prefill_caches": jax.tree.map(np.asarray, caches)}
             if cfg.is_encoder:
                 return out
-            caches = {k: jnp.pad(v, [(0, 0), (0, 0), (0, GEN)]
-                                 + [(0, 0)] * (v.ndim - 3))
+            caches = {k: v if k == "ssm" else
+                      jnp.pad(v, [(0, 0), (0, 0), (0, GEN)]
+                              + [(0, 0)] * (v.ndim - 3))
                       for k, v in caches.items()}
             step = jax.jit(decode)
             for t in range(GEN):
@@ -195,6 +199,31 @@ def rank_rows(r, dp, tp, n=B):
     return slice(d * n // dp, (d + 1) * n // dp)
 
 
+def caches_of(caches, cfg, r, dp, tp):
+    """Rank r's part of whole caches: its rows; of a K/V or latent cache
+    its chunk of the sequence; of Mamba-1's states its channels (of
+    Mamba-2's all)."""
+    rows = rank_rows(r, dp, tp)
+    out = {}
+    for name, c in caches.items():
+        if name != "ssm":
+            out[name] = chunk_of(c[:, rows], r, tp)
+            continue
+        conv, h = (t[:, rows] for t in c)
+        if cfg.family == "ssm":
+            conv, h = chunk_of(conv, r, tp, 3), chunk_of(h, r, tp, 2)
+        out[name] = (conv, h)
+    return out
+
+
+def assert_caches(got, want, tol, msg=""):
+    for name, c in got.items():
+        pairs = zip(c, want[name]) if name == "ssm" else [(c, want[name])]
+        for g, w in pairs:
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), **tol,
+                                       err_msg=f"{msg} {name}")
+
+
 def chunk_of(a, r, tp, dim=2):
     """Rank r's chunk of the sequence axis ``dim`` of a whole cache."""
     n = a.shape[dim] // tp
@@ -211,7 +240,8 @@ INSIDE = [("dense", {}), ("dense_explicit_tp", {}),
           ("dense", {"causal_tree_attn": True}),
           ("mla", {"capacity_factor": 4.0}),
           ("encoder", {}), ("moe_psum", {"capacity_factor": 4.0}),
-          ("moe_a2a", {"capacity_factor": 4.0})]
+          ("moe_a2a", {"capacity_factor": 4.0}), ("ssm", {}),
+          ("hybrid", {})]
 
 
 @pytest.mark.parametrize("dp,tp", [(1, 2), (1, 4), (2, 2), (2, 1)],
@@ -236,9 +266,9 @@ def test_tp_k_equals_one_device(name, more, dp, tp):
             sure = top2[:, 0] - top2[:, 1] > TOL["atol"]
             assert torch.equal(run["tokens"][t][sure],
                                want["tokens"][t][sure])
-        for cname, got in run.get("caches", {}).items():
-            torch.testing.assert_close(
-                got, chunk_of(want["caches"][cname][:, rows], r, tp), **TOL)
+        if "caches" in run:
+            assert_caches(run["caches"], caches_of(want["caches"], cfg, r,
+                                                   dp, tp), TOL, f"rank {r}")
 
 
 def test_psum_keeps_the_capacity_of_every_token():
@@ -368,27 +398,18 @@ def test_gloo_processes_equal_thread_ranks(tmp_path):
     assert np.array_equal(np.load(out), threads[0])
 
 
-@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1p2b"])
-def test_ssm_and_hybrid_raise_at_tp_above_one(arch):
-    cfg = PB.get_smoke_config(arch).with_(dtype="float32")
-
-    def build(mcx):
-        return PM.build(cfg, "cpu", mesh=mcx)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        MESH.make_host_mesh(1, 2).run(build)
-    batch = prompts(cfg)
-    want = rank_run(None, cfg, None, batch, 2)
-    for r, run in enumerate(on_mesh(2, 1, cfg, batch=batch, gen=2)):
-        torch.testing.assert_close(run["logits"][-1],
-                                   want["logits"][-1][rank_rows(r, 2, 1)],
-                                   **TOL)
-
-
 def test_training_and_the_production_mesh_raise():
+    """Training on a mesh is ported (``tests/test_torch_mesh_train.py``):
+    a model built for training at (1, 2) holds the tp = 1 model's weights
+    split; only the 256/512-device production mesh still raises."""
     cfg = config("dense")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        MESH.make_host_mesh(1, 2).run(
-            lambda mcx: PM.build(cfg, "cpu", training=True, mesh=mcx))
+    whole = PM.build(cfg, "cpu", training=True)
+    parts = MESH.make_host_mesh(1, 2).run(
+        lambda mcx: PM.build(cfg, "cpu", training=True,
+                             mesh=mcx).layers[0]["mlp"]["w_up"])
+    assert torch.equal(torch.cat(parts, 1),
+                       whole.layers[0]["mlp"]["w_up"])
+    assert all(p.requires_grad for p in parts)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         MESH.make_production_mesh()
 
@@ -517,7 +538,8 @@ def test_thread_ranks_equal_the_reference(reference, name, dp, tp):
             assert np.array_equal(run["tokens"][t].numpy(),
                                   np.argmax(want, -1)), (r, t)
         for key in ("prefill_caches", "caches"):
-            for cname, got in run.get(key, {}).items():
-                want = chunk_of(ref[key][cname][:, rows], r, tp)
-                np.testing.assert_allclose(got.numpy(), want, **TOL,
-                                           err_msg=f"rank {r} {key} {cname}")
+            if key in run:
+                got = {k: v for k, v in run[key].items()}
+                want = caches_of({k: ref[key][k] for k in got}, cfg, r, dp,
+                                 tp)
+                assert_caches(got, want, TOL, f"rank {r} {key}")

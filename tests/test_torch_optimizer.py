@@ -107,10 +107,24 @@ def test_quantize_int8_roundtrip():
 
 
 def test_zero_sharding_helpers_raise():
-    for fn in (POPT.zero1_spec, POPT.opt_state_shardings):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 12 \\(several cards\\)"):
-            fn()
+    """The ZeRO-1 helpers, which raised until training on a mesh was
+    ported, give the reference's ``zero1_spec`` on the port's specs (a
+    tuple of "model" / "data" / None where the reference has a
+    ``PartitionSpec``); only the production mesh still raises."""
+    from jax.sharding import PartitionSpec as P
+    from repro_torch.launch import mesh as PMESH
+    cases = [((None, "model"), (64, 128)), ((None, None), (64, 128)),
+             ((None,), (63,)), (("data", None), (64, 128)),
+             (("model", None, None), (8, 64, 32)), ((), (6, 4))]
+    for spec, shape in cases:
+        for dp in (2, 4):
+            ref = ROPT.zero1_spec(
+                P(*[("data",) if a == "data" else a for a in spec]), shape,
+                ("data",), dp)
+            want = tuple("data" if e == ("data",) else e for e in ref)
+            assert POPT.zero1_spec(spec, shape, dp) == want, (spec, dp)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        PMESH.make_production_mesh()
 
 
 def test_bfloat16_update_is_lost_below_half_an_ulp():
